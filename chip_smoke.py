@@ -1,0 +1,461 @@
+"""Smoke run of the PyTorch/H100 port on one CUDA device.
+
+    python3 chip_smoke.py
+
+From the repository root. It
+
+1. prints the card (name and power limit, as ``nvidia-smi`` reports them)
+   and the torch/triton versions;
+2. builds the three Triton kernels of ``midi_vae_tpu_torch/ops/fused_elbo.py``
+   (into this checkout's ``build/triton/`` unless ``TRITON_CACHE_DIR`` is
+   set), holds each against its plain PyTorch version on the card at the
+   flagship shapes, a ragged shape and a saturated one, and times kernel,
+   plain version and the library yardstick with CUDA events. K3's noise
+   is read back from K3 itself: with mu = 0 and log_var = 0 in f32 it
+   writes z = eps exactly, and its z on the flagship's inputs is then held
+   against the plain version given that eps;
+3. trains the flagship FoldedVAE (fold 8, hidden (48, 64, 128, 256),
+   latent 10, bf16, batch 2048 of 128×128 synthetic piano rolls, AdamW
+   under OneCycle, β 2.5e-4) through the fused kernels, checks that each
+   kernel ran once per step, that the loss is finite and falls, and that
+   one unfused step on the same weights and batch, given the noise K3
+   draws in the first fused step, gives the same loss; then profiles three
+   more steps (device time by kernel and by layer, and the device's busy
+   share of the step);
+4. reconstructs a batch in eval mode (posterior mean), and checks the
+   model on the card against the same model on the CPU at a small batch;
+5. prints one ``{"kernels": [...]}`` line, the card line again, and as the
+   last line ``{"ok": true, "device": {...}}``.
+
+Any failed check raises and the script exits non-zero; so does a machine
+without a CUDA device. TF32 is off for every comparison (cuDNN and
+cuBLAS), so f32 on the card is f32.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from midi_vae_tpu_torch.data.synthetic import make_pianoroll_batch
+from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
+from midi_vae_tpu_torch.models.registry import build_model
+from midi_vae_tpu_torch.models.vae import param_group_label
+from midi_vae_tpu_torch.ops import fused_elbo as ops
+from midi_vae_tpu_torch.train.optim import build_optimizer
+from midi_vae_tpu_torch.train.state import create_train_state, derive_step_seed, make_train_step
+
+FLAGSHIP = dict(in_channels=1, latent_dim=10, input_dim=128, hidden_dims=(48, 64, 128, 256), fold=8)
+BATCH = 2048
+TRAIN_STEPS = 30
+KL_WEIGHT = 2.5e-4  # bench.py's constant β
+OPTIMIZER = dict(optimizer="AdamW", lr=1e-3, scheduler="OneCycle", total_steps=10000)  # bench.py:127-138
+TIMING_LAUNCHES = 25
+
+# H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per element, counted from the kernels' bodies (exp, log, sqrt, cos as one
+# each); K3's draw is Philox-4x32-10 (~60 integer operations) plus Box-Muller
+OPS_PER_ELEMENT = {"K1": 23, "K2": 23, "K3": 80}
+
+KERNEL_INFO = {
+    "K1": ("K1 _bce_partial_kernel+_sum_partials_kernel (fused BCE mean)", "midi_vae_tpu/ops/fused_elbo.py:125"),
+    "K2": ("K2 _bce_grad_kernel (fused BCE gradient)", "midi_vae_tpu/ops/fused_elbo.py:141"),
+    "K3": ("K3 _reparam_kl_kernel+_sum_partials_kernel (reparam + KL)", "midi_vae_tpu/ops/fused_elbo.py:48"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, launches: int = TIMING_LAUNCHES, rounds: int = 5) -> float:
+    """Per-launch time: CUDA events around ``launches`` back-to-back calls,
+    divided by their number; the median of ``rounds`` such windows after
+    warm-up. A call shorter than its host-side launch cost reads as that
+    cost (the device waits for the host)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_launch = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        per_launch.append(start.elapsed_time(end) / launches)
+    return statistics.median(per_launch)
+
+
+def bound_ms(key: str, n_elements: int, n_bytes: int):
+    """(least time on the card, what bounds it): bytes over the HBM rate vs
+    operations over the f32 rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_elements * OPS_PER_ELEMENT[key] / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k3_eps(shape, seed: int, dev) -> torch.Tensor:
+    """The f32 noise K3 draws for a [B, D] input with ``seed``: with mu = 0 and
+    log_var = 0 in f32 its z = 0 + eps·exp(0) is eps exactly."""
+    zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
+    return ops.reparam_kl(zeros, zeros, seed)[0]
+
+
+def ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of numbers of x's dtype at |x|, as f32 (subnormals flushed up to the least normal)."""
+    info = torch.finfo(x.dtype)
+    _, e = torch.frexp(x.float().abs().clamp_min(info.tiny))
+    return torch.ldexp(torch.full_like(x, info.eps, dtype=torch.float32), e - 1)
+
+
+# ================================================================= kernels
+
+
+def check_bce(logits, targets, g, label):
+    """K1 and K2 against their plain versions on one input; returns the max errors."""
+    k1 = ops.bce_mean(logits, targets)
+    k1_again = ops.bce_mean(logits, targets)
+    p1 = ops.bce_mean_plain(logits, targets)
+    err1 = abs(float(k1) - float(p1))
+    check(torch.equal(k1, k1_again), f"K1 repeat not bitwise equal ({label})")
+    check(err1 <= 1e-4 * abs(float(p1)), f"K1 {float(k1)} vs plain {float(p1)} ({label})")
+    k2 = ops.bce_mean_grad(logits, targets, g)
+    p2 = ops.bce_mean_grad_plain(logits, targets, g)
+    check(k2.dtype == logits.dtype and k2.shape == logits.shape, f"K2 dtype/shape ({label})")
+    diff = (k2.float() - p2.float()).abs()
+    # at most 1 ulp of the logits' dtype, taken at the larger of the two values
+    beyond = int((diff > ulp(torch.maximum(k2.abs(), p2.abs()))).sum())
+    check(beyond == 0, f"K2 vs plain ({label}): {beyond} elements more than 1 ulp apart, max diff {float(diff.max())}")
+    log(
+        f"  {label}: K1 {float(k1):.7f} plain {float(p1):.7f} |err| {err1:.3e}; K2 max |err| {float(diff.max()):.3e}, "
+        f"{int((k2 != p2).sum())} of {diff.numel()} not bitwise equal, {beyond} beyond 1 ulp"
+    )
+    return err1, float(diff.max())
+
+
+def kernels_phase(dev):
+    """Each kernel against its plain version on the card, and the three timings."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (BATCH, 128, 128, 1)
+    logits = (3.0 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+    targets, _ = make_pianoroll_batch(gen, BATCH, device=dev)
+    g = torch.full((), 2.5, device=dev)
+    n = logits.numel()
+
+    build = {}
+    for key, fn in (
+        ("K1", lambda: ops.bce_mean(logits, targets)),
+        ("K2", lambda: ops.bce_mean_grad(logits, targets, g)),
+    ):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        build[key] = time.perf_counter() - t0
+
+    cache = Path(os.environ["TRITON_CACHE_DIR"])  # build/triton/ unless the caller set it
+    n_files = sum(1 for p in cache.rglob("*") if p.is_file())
+    log(f"  Triton build cache: {cache} ({n_files} files)")
+    check(n_files > 0, f"no Triton build output under {cache}")
+
+    errs = {}
+    errs["K1"], errs["K2"] = check_bce(logits, targets, g, f"flagship {list(shape)} bf16 logits, f32 targets")
+    ragged_l = 3.0 * torch.randn((3, 5, 7, 1), generator=gen, device=dev)
+    ragged_t = torch.rand((3, 5, 7, 1), generator=gen, device=dev) - 0.5
+    for label, (lg, tg) in {
+        "ragged [3,5,7,1] f32": (ragged_l, ragged_t),
+        "ragged [3,5,7,1] bf16": (ragged_l.to(torch.bfloat16), ragged_t),
+        "saturated ±150 f32": (
+            torch.tensor([[150.0, -150.0, 0.5, -0.5]] * 32, device=dev),
+            torch.tensor([[0.0, 1.0, 0.3, 0.7]] * 32, device=dev),
+        ),
+    }.items():
+        e1, e2 = check_bce(lg, tg, g, label)
+        errs["K1"], errs["K2"] = max(errs["K1"], e1), max(errs["K2"], e2)
+
+    # K3 at the flagship's [B, latent] in bf16
+    mu = torch.randn((BATCH, 10), generator=gen, device=dev).to(torch.bfloat16)
+    lv = (0.3 * torch.randn((BATCH, 10), generator=gen, device=dev)).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    z, kl = ops.reparam_kl(mu, lv, 1234)
+    torch.cuda.synchronize()
+    build["K3"] = time.perf_counter() - t0
+    eps = k3_eps(mu.shape, 1234, dev)
+    z_plain, kl_plain = ops.reparam_kl_plain(mu, lv, eps)
+    kl_err = abs(float(kl) - float(kl_plain))
+    check(kl_err <= 1e-5 * abs(float(kl_plain)), f"K3 KL {float(kl)} vs plain {float(kl_plain)}")
+    check(z.dtype == torch.bfloat16 and z.shape == mu.shape, "K3 z dtype/shape")
+    z_diff = (z.float() - z_plain.float()).abs()
+    # at most 1 ulp of bf16, taken at the larger of the two values
+    beyond = int((z_diff > ulp(torch.maximum(z.abs(), z_plain.abs()))).sum())
+    check(bool(torch.isfinite(z).all()) and beyond == 0,
+          f"K3 z vs plain with K3's eps: {beyond} elements more than 1 ulp apart, max diff {float(z_diff.max())}")
+    errs["K3"] = max(kl_err, float(z_diff.max()))
+    mu_s = torch.full((4096, 16), 2.0, device=dev)
+    lv_s = torch.full((4096, 16), math.log(0.25), device=dev)
+    z_s, _ = ops.reparam_kl(mu_s, lv_s, 7)
+    z_mean, z_std = float(z_s.mean()), float(z_s.std())
+    check(abs(z_mean - 2.0) < 0.01 and abs(z_std - 0.5) < 0.01, f"K3 z mean {z_mean} std {z_std}")
+    check(torch.equal(ops.reparam_kl(mu_s, lv_s, 7)[0], z_s), "K3 same seed, different z")
+    check(not torch.equal(ops.reparam_kl(mu_s, lv_s, 8)[0], z_s), "K3 another seed, same z")
+    log(f"  K3: KL {float(kl):.6f} plain {float(kl_plain):.6f} |err| {kl_err:.3e}; z [{BATCH},10] bf16 vs plain "
+        f"with K3's eps max |err| {float(z_diff.max()):.3e}, {int((z != z_plain).sum())} of {z.numel()} not bitwise "
+        f"equal, {beyond} beyond 1 ulp; z over [4096,16] mean {z_mean:.5f} std {z_std:.5f}")
+    log("  first-launch (build + run) s: " + ", ".join(f"{k} {v:.2f}" for k, v in build.items()))
+
+    # timings: kernel, plain version, library yardstick (one PyTorch call, used nowhere in the port)
+    lib_logits = logits.detach().requires_grad_(True)
+    lib_loss = F.binary_cross_entropy_with_logits(lib_logits, targets)
+    eps_gen = torch.Generator(device=dev).manual_seed(1)
+    times = {
+        "K1": (
+            time_ms(lambda: ops.bce_mean(logits, targets)),
+            time_ms(lambda: ops.bce_mean_plain(logits, targets)),
+            time_ms(lambda: F.binary_cross_entropy_with_logits(logits, targets)),
+        ),
+        "K2": (
+            time_ms(lambda: ops.bce_mean_grad(logits, targets, g)),
+            time_ms(lambda: ops.bce_mean_grad_plain(logits, targets, g)),
+            time_ms(lambda: torch.autograd.grad(lib_loss, lib_logits, grad_outputs=g, retain_graph=True)),
+        ),
+        "K3": (
+            time_ms(lambda: ops.reparam_kl(mu, lv, 1234)),
+            time_ms(lambda: ops.reparam_kl_plain(mu, lv, torch.randn(mu.shape, generator=eps_gen, device=dev))),
+            None,
+        ),
+    }
+    sizes = {
+        "K1": (n, n * (logits.element_size() + targets.element_size()) + 4),
+        "K2": (n, n * (2 * logits.element_size() + targets.element_size()) + 4),
+        "K3": (mu.numel(), mu.numel() * 3 * mu.element_size() + 4),
+    }
+    return errs, times, sizes
+
+
+# ================================================================= train
+
+
+def train_phase(dev):
+    model = build_model("FoldedVAE", dtype=torch.bfloat16, fused_reparam=True, seed=0, device=dev, **FLAGSHIP)
+    init_weights = copy.deepcopy(model.state_dict())
+    data_gen = torch.Generator(device=dev).manual_seed(1)
+    x0, _ = make_pianoroll_batch(data_gen, BATCH, device=dev)
+    epoch_seed = 0
+    kl_schedule = kl_weight_schedule("constant", KL_WEIGHT)
+
+    # reference: one unfused step from the same weights and batch, given the
+    # eps that K3 draws in the first fused step (same seed → same Philox draw)
+    ref = build_model("FoldedVAE", dtype=torch.bfloat16, fused_reparam=True, seed=0, device=dev, **FLAGSHIP)
+    ref.load_state_dict(init_weights)
+    eps = k3_eps((BATCH, FLAGSHIP["latent_dim"]), derive_step_seed(epoch_seed, 0), dev)
+    ref_state = create_train_state(ref, build_optimizer(ref, param_group_label, **OPTIMIZER))
+    _, ref_lo, _ = make_train_step(kl_schedule, fused_loss=False)(ref_state, x0, epoch_seed, eps=eps)
+    ref_loss = ref_lo.loss.item()
+    del ref, ref_state
+
+    # the main path: fused steps through K1/K2/K3, launch counts from 0
+    state = create_train_state(model, build_optimizer(model, param_group_label, **OPTIMIZER))
+    step = make_train_step(kl_schedule, fused_loss=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, step_ms = [], []
+    x = x0
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if i:
+            x, _ = make_pianoroll_batch(data_gen, BATCH, device=dev)
+        state, lo, grad_norm = step(state, x, epoch_seed)
+        losses.append(lo.loss.item())  # reading the loss to the host closes the window
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(math.isfinite(losses[-1]) and math.isfinite(grad_norm.item()), f"step {i}: loss {losses[-1]}")
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    log(f"  losses: first {losses[0]:.6f}, last five {[round(v, 6) for v in losses[-5:]]}")
+    check(statistics.mean(losses[-5:]) < losses[0], "loss did not fall over the run")
+    for key, c in counts.items():
+        check(c == TRAIN_STEPS, f"{key} launched {c} times in {TRAIN_STEPS} fused steps")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    log(f"  first fused step loss {losses[0]:.7f} vs unfused step with K3's eps {ref_loss:.7f}: rel {rel:.2e}")
+    check(rel <= 1e-3, "fused and unfused first-step losses differ")
+    med = statistics.median(step_ms)
+    log(f"  launches in {TRAIN_STEPS} fused steps: {counts}; peak memory {peak_gib:.2f} GiB")
+    log(f"  throughput {BATCH * TRAIN_STEPS / sum(step_ms) * 1e3:.1f} samples/s ({BATCH * TRAIN_STEPS} samples "
+        f"in {sum(step_ms):.3f} ms); step time median {med:.3f} ms, min {min(step_ms):.3f} ms, "
+        f"max {max(step_ms):.3f} ms over {TRAIN_STEPS} steps, bf16, batch {BATCH}, incl. batch generation "
+        f"[{card_line()}]")
+    profile_steps(state, step, data_gen, epoch_seed, dev, med)
+    return model, counts, med
+
+
+# kernel-name fragments → layer, for the profile's breakdown (first match wins)
+OUR_KERNELS = ("_bce_partial_kernel", "_sum_partials_kernel", "_bce_grad_kernel", "_reparam_kl_kernel")
+LAYERS = (
+    ("K1-K3 (Triton)", OUR_KERNELS),
+    ("convs and dense (cuDNN, cuBLAS)", ("xmma", "cutlass", "gemm", "conv", "wgrad", "dgrad", "nvjet", "splitK")),
+    ("AdamW (foreach)", ("multi_tensor_apply",)),
+    ("batch generation (scatter, random)", ("scatter", "distribution", "random")),
+    ("reductions (BatchNorm statistics, grad norm, loss)", ("reduce_kernel",)),
+)
+
+
+def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_steps: int = 3) -> None:
+    """Device time by kernel and by layer over a few more fused steps
+    (torch.profiler), and the device's busy share of ``step_ms``, the
+    median step time measured without the profiler (whose own host cost
+    lengthens the profiled window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            x, _ = make_pianoroll_batch(data_gen, BATCH, device=dev)
+            state, lo, _ = step(state, x, epoch_seed)
+        lo.loss.item()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def is_annotation(e) -> bool:
+        # user annotations such as "Optimizer.step#AdamW.step" span kernels that
+        # are listed on their own; kernel names may hold '#' too, as in
+        # "{lambda(float)#1}", but never without a parenthesis
+        return bool(getattr(e, "is_user_annotation", False)) or ("#" in e.key and "(" not in e.key)
+
+    kernels = sorted(
+        (
+            e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and not is_annotation(e)
+        ),
+        key=lambda e: e.self_device_time_total, reverse=True,
+    )
+    busy_ms = sum(e.self_device_time_total for e in kernels) / n_steps / 1e3
+    log(f"  profile of {n_steps} steps: device busy {busy_ms:.3f} ms/step, {busy_ms / step_ms:.1%} of the "
+        f"{step_ms:.3f} ms median step ({wall_us / n_steps / 1e3:.3f} ms/step under the profiler), "
+        f"{sum(e.count for e in kernels) // n_steps} kernels/step")
+    by_layer: dict = {}
+    for e in kernels:
+        layer = next((name for name, frags in LAYERS if any(f in e.key for f in frags)), "other elementwise and copies")
+        by_layer[layer] = by_layer.get(layer, 0.0) + e.self_device_time_total / n_steps / 1e3
+    log("  device time by layer: " + "; ".join(
+        f"{name} {ms:.4f} ms/step ({ms / busy_ms:.1%})" for name, ms in sorted(by_layer.items(), key=lambda kv: -kv[1])
+    ))
+    log("  kernels by device time:")
+    for i, e in enumerate(kernels):
+        if i < 15 or e.key in OUR_KERNELS:
+            ms = e.self_device_time_total / n_steps / 1e3
+            log(f"    {ms:8.4f} ms/step {ms / busy_ms:6.1%} x{e.count // n_steps:<4d} {e.key[:100]}")
+
+
+# ============================================================= reconstruct
+
+
+def reconstruct_phase(model, dev):
+    """Eval-mode posterior-mean reconstruction of a batch; then the model on
+    the card vs the same weights on the CPU, f32, small batch."""
+    x, _ = make_pianoroll_batch(torch.Generator(device=dev).manual_seed(2), BATCH, device=dev)
+    with torch.no_grad():
+        recon = model.decode(model.encode(x, train=False).mu, train=False)
+    check(recon.shape == (BATCH, 128, 128, 1), f"reconstruction shape {tuple(recon.shape)}")
+    check(bool(torch.isfinite(recon).all()), "reconstruction not finite")
+    check(float(recon.min()) >= 0.0 and float(recon.max()) <= 1.0, "reconstruction outside [0, 1]")
+
+    small = x[:4].contiguous()
+    eps = torch.randn((4, 10), generator=torch.Generator().manual_seed(3))
+    gpu = build_model("FoldedVAE", seed=5, device=dev, **FLAGSHIP)
+    cpu = build_model("FoldedVAE", seed=5, device="cpu", **FLAGSHIP)
+    with torch.no_grad():
+        errs = []
+        out_g = gpu(small, train=True, eps=eps.to(dev))
+        out_c = cpu(small.cpu(), train=True, eps=eps)
+        errs.append(float((out_g.logits.cpu() - out_c.logits).abs().max()))
+        rec_g = gpu.decode(gpu.encode(small, train=False).mu, train=False)
+        rec_c = cpu.decode(cpu.encode(small.cpu(), train=False).mu, train=False)
+        errs.append(float((rec_g.cpu() - rec_c).abs().max()))
+    log(f"  card vs CPU, f32 batch 4: train logits max |err| {errs[0]:.3e}, eval reconstruction {errs[1]:.3e}")
+    check(max(errs) <= 1e-4, "model on the card disagrees with the CPU")
+
+
+# ==================================================================== main
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    check(torch.cuda.device_count() == 1, f"needs exactly one visible CUDA device, found {torch.cuda.device_count()}")
+    os.environ.setdefault("TRITON_CACHE_DIR", str(Path(__file__).resolve().parent / "build" / "triton"))
+    import triton
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), triton {triton.__version__}; TF32 off (cuDNN, cuBLAS)")
+
+    t0 = time.perf_counter()
+    log("kernels vs plain versions on the card:")
+    errs, times, sizes = kernels_phase(dev)
+    log(f"train ({TRAIN_STEPS} fused steps, flagship FoldedVAE):")
+    model, counts, _ = train_phase(dev)
+    log("reconstruct:")
+    reconstruct_phase(model, dev)
+
+    kernels = []
+    for key, (name, replaces) in KERNEL_INFO.items():
+        ms, plain_ms, library_ms = times[key]
+        bound, bound_by = bound_ms(key, *sizes[key])
+        kernels.append(
+            {
+                "name": name,
+                "route": "triton",
+                "source": "midi_vae_tpu_torch/ops/fused_elbo.py",
+                "replaces": replaces,
+                "launches": counts[key],
+                "max_abs_err": errs[key],
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+            }
+        )
+        log(f"  {key}: {ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms}, bound {bound:.4f} by {bound_by})")
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,75 @@
+"""ELBO loss: BCE reconstruction + weighted Gaussian KL (counterpart of
+``midi_vae_tpu/losses/elbo.py``).
+
+reconstruction = clamped BCE from logits, mean over every element;
+KL = −0.5·mean_batch(sum_latent(1 + log_var − mu² − exp(log_var))), in f32;
+total = reconstruction + kld_weight·KL; ``kld_loss`` is the negated KL.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from midi_vae_tpu_torch.core.types import LossOutput, ModelOutput
+
+_LOG_CLAMP = -100.0  # torch binary_cross_entropy clamps log terms at -100
+
+
+def bce_from_logits(
+    logits: torch.Tensor, targets: torch.Tensor, pos_weight: Optional[float] = None
+) -> torch.Tensor:
+    """Elementwise ``-[pw·t·max(log σ(l), −100) + (1−t)·max(log(1−σ(l)), −100)]`` in f32.
+
+    The clamp keeps BCE bounded for the normalised targets in [−0.5, 0.5]
+    that the reference trains on; ``pos_weight`` multiplies the
+    positive-class term (torch ``BCEWithLogitsLoss`` convention).
+    """
+    logits = logits.float()
+    targets = targets.float()
+    log_p = (-F.softplus(-logits)).clamp_min(_LOG_CLAMP)
+    log_1mp = (-F.softplus(logits)).clamp_min(_LOG_CLAMP)
+    pw = 1.0 if pos_weight is None else pos_weight
+    return -(pw * targets * log_p + (1.0 - targets) * log_1mp)
+
+
+def kl_gaussian(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
+    """KL(N(mu, σ²) || N(0, I)): sum over the latent dim, mean over the batch, in f32."""
+    mu, log_var = mu.float(), log_var.float()
+    return -0.5 * torch.mean(torch.sum(1.0 + log_var - mu**2 - torch.exp(log_var), dim=-1))
+
+
+def elbo_loss(
+    output: ModelOutput,
+    kld_weight: float = 1.0,
+    log_var_clamp: Optional[Tuple[float, float]] = None,
+    free_bits: Optional[float] = None,
+    pos_weight: Optional[float] = None,
+    target_denorm=None,
+) -> LossOutput:
+    """VAE loss on the unfused path (reference: ``VanillaVAE.loss``).
+
+    ``kld_weight`` is a host float (the schedules' output).
+    ``log_var_clamp`` clips log_var before the KL. ``free_bits`` and
+    ``target_denorm`` are not ported yet and raise.
+    """
+    if free_bits is not None:
+        raise NotImplementedError("free_bits is not ported to the PyTorch package yet")
+    if target_denorm is not None:
+        raise NotImplementedError("target_denorm (raw BCE targets) is not ported to the PyTorch package yet")
+    loss_recon = torch.mean(bce_from_logits(output.logits, output.input, pos_weight))
+    log_var = output.encoded.log_var
+    if log_var_clamp is not None:
+        log_var = log_var.clamp(log_var_clamp[0], log_var_clamp[1])
+    kl = kl_gaussian(output.encoded.mu, log_var)
+    loss = loss_recon + kld_weight * kl
+    return LossOutput(
+        loss=loss,
+        reconstruction_loss=loss_recon.detach(),
+        kld_loss=-kl.detach(),
+        kl=kl.detach(),
+        # filled on the device: a host tensor copied over would wait for the queue
+        kld_weight=torch.full((), float(kld_weight), dtype=loss.dtype, device=loss.device),
+    )
