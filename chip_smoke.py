@@ -6,25 +6,34 @@ From the repository root. It
 
 1. prints the card (name and power limit, as ``nvidia-smi`` reports them)
    and the torch/triton versions;
-2. builds the three Triton kernels of ``midi_vae_tpu_torch/ops/fused_elbo.py``
-   (into this checkout's ``build/triton/`` unless ``TRITON_CACHE_DIR`` is
-   set), holds each against its plain PyTorch version on the card at the
-   flagship shapes, a ragged shape and a saturated one, and times kernel,
-   plain version and the library yardstick with CUDA events. K3's noise
-   is read back from K3 itself: with mu = 0 and log_var = 0 in f32 it
-   writes z = eps exactly, and its z on the flagship's inputs is then held
-   against the plain version given that eps;
-3. trains the flagship FoldedVAE (fold 8, hidden (48, 64, 128, 256),
+2. builds the CUDA C++ kernels of ``midi_vae_tpu_torch/csrc/`` with
+   ``nvcc``, one process per source, all at once (into this checkout's
+   ``build/kernels/`` unless ``MIDI_VAE_TORCH_KERNEL_DIR`` is set), and
+   prints each build's time and ptxas report (registers, shared memory,
+   spills);
+3. builds the Triton kernels K1 and K2 of
+   ``midi_vae_tpu_torch/ops/fused_elbo.py`` (into ``build/triton/`` unless
+   ``TRITON_CACHE_DIR`` is set), holds each against its plain PyTorch
+   version on the card at the flagship shapes, a ragged shape and a
+   saturated one, and times kernel, plain version and the library
+   yardstick with CUDA events;
+4. holds K3 (CUDA C++) against its plain version: its noise, read back
+   from K3 itself (with mu = 0 and log_var = 0 in f32 it writes z = eps
+   exactly), against the plain Philox draw; its z and KL against the whole
+   plain function at the flagship shape, a ragged one and one past a
+   single CTA's reach; its backward against the plain backward, with and
+   without a KL gradient; and times both;
+5. trains the flagship FoldedVAE (fold 8, hidden (48, 64, 128, 256),
    latent 10, bf16, batch 2048 of 128×128 synthetic piano rolls, AdamW
    under OneCycle, β 2.5e-4) through the fused kernels, checks that each
    kernel ran once per step, that the loss is finite and falls, and that
-   one unfused step on the same weights and batch, given the noise K3
-   draws in the first fused step, gives the same loss; then profiles three
-   more steps (device time by kernel and by layer, and the device's busy
-   share of the step);
-4. reconstructs a batch in eval mode (posterior mean), and checks the
+   one unfused step on the same weights and batch, given the plain draw
+   of the first fused step's seed, gives the same loss; then profiles
+   three more steps (device time by kernel and by layer, and the device's
+   busy share of the step);
+6. reconstructs a batch in eval mode (posterior mean), and checks the
    model on the card against the same model on the CPU at a small batch;
-5. prints one ``{"kernels": [...]}`` line, the card line again, and as the
+7. prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
@@ -51,6 +60,7 @@ from midi_vae_tpu_torch.data.synthetic import make_pianoroll_batch
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.registry import build_model
 from midi_vae_tpu_torch.models.vae import param_group_label
+from midi_vae_tpu_torch.ops import cuda_lib
 from midi_vae_tpu_torch.ops import fused_elbo as ops
 from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, derive_step_seed, make_train_step
@@ -67,12 +77,20 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # operations per element, counted from the kernels' bodies (exp, log, sqrt, cos as one
 # each); K3's draw is Philox-4x32-10 (~60 integer operations) plus Box-Muller
-OPS_PER_ELEMENT = {"K1": 23, "K2": 23, "K3": 80}
+OPS_PER_ELEMENT = {"K1": 23, "K2": 23, "K3": 80, "K3-bwd": 3}
 
+TRITON_SOURCE = "midi_vae_tpu_torch/ops/fused_elbo.py"
+K3_SOURCE = "midi_vae_tpu_torch/csrc/reparam_kl.cu"
+# key → (name, route, source, TPU kernel it replaces, fragments of its device kernels' names)
 KERNEL_INFO = {
-    "K1": ("K1 _bce_partial_kernel+_sum_partials_kernel (fused BCE mean)", "midi_vae_tpu/ops/fused_elbo.py:125"),
-    "K2": ("K2 _bce_grad_kernel (fused BCE gradient)", "midi_vae_tpu/ops/fused_elbo.py:141"),
-    "K3": ("K3 _reparam_kl_kernel+_sum_partials_kernel (reparam + KL)", "midi_vae_tpu/ops/fused_elbo.py:48"),
+    "K1": ("K1 _bce_partial_kernel+_sum_partials_kernel (fused BCE mean)", "triton", TRITON_SOURCE,
+           "midi_vae_tpu/ops/fused_elbo.py:125", ("_bce_partial_kernel", "_sum_partials_kernel")),
+    "K2": ("K2 _bce_grad_kernel (fused BCE gradient)", "triton", TRITON_SOURCE,
+           "midi_vae_tpu/ops/fused_elbo.py:141", ("_bce_grad_kernel",)),
+    "K3": ("K3 k3_reparam_kl_fwd_kernel (reparam + KL, one cluster launch)", "cuda", K3_SOURCE,
+           "midi_vae_tpu/ops/fused_elbo.py:48", ("k3_reparam_kl_fwd_kernel",)),
+    "K3-bwd": ("K3-bwd k3_reparam_kl_bwd_kernel (reparam + KL backward)", "cuda", K3_SOURCE,
+               "midi_vae_tpu/ops/fused_elbo.py:106", ("k3_reparam_kl_bwd_kernel",)),
 }
 
 
@@ -160,8 +178,24 @@ def check_bce(logits, targets, g, label):
     return err1, float(diff.max())
 
 
+def build_phase() -> None:
+    """Build the CUDA C++ kernels (one nvcc per source, all at once); print
+    each build's time and ptxas report."""
+    t0 = time.perf_counter()
+    built = cuda_lib.build()
+    log(f"  {len(built)} CUDA librar{'y' if len(built) == 1 else 'ies'} in {time.perf_counter() - t0:.2f} s "
+        f"({cuda_lib.NVCC_FLAGS})")
+    for name, b in built.items():
+        check(b.path.is_file(), f"no library at {b.path}")
+        seconds = "found built" if b.seconds is None else f"nvcc {b.seconds:.2f} s"
+        log(f"  {name}: {seconds}, {b.path}")
+        for line in b.ptxas.splitlines():
+            if any(k in line for k in ("Compiling entry", "Used", "spill")):
+                log(f"    {line.strip()}")
+
+
 def kernels_phase(dev):
-    """Each kernel against its plain version on the card, and the three timings."""
+    """K1 and K2 against their plain versions on the card, and their timings."""
     gen = torch.Generator(device=dev).manual_seed(0)
     shape = (BATCH, 128, 128, 1)
     logits = (3.0 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
@@ -199,40 +233,11 @@ def kernels_phase(dev):
         e1, e2 = check_bce(lg, tg, g, label)
         errs["K1"], errs["K2"] = max(errs["K1"], e1), max(errs["K2"], e2)
 
-    # K3 at the flagship's [B, latent] in bf16
-    mu = torch.randn((BATCH, 10), generator=gen, device=dev).to(torch.bfloat16)
-    lv = (0.3 * torch.randn((BATCH, 10), generator=gen, device=dev)).to(torch.bfloat16)
-    t0 = time.perf_counter()
-    z, kl = ops.reparam_kl(mu, lv, 1234)
-    torch.cuda.synchronize()
-    build["K3"] = time.perf_counter() - t0
-    eps = k3_eps(mu.shape, 1234, dev)
-    z_plain, kl_plain = ops.reparam_kl_plain(mu, lv, eps)
-    kl_err = abs(float(kl) - float(kl_plain))
-    check(kl_err <= 1e-5 * abs(float(kl_plain)), f"K3 KL {float(kl)} vs plain {float(kl_plain)}")
-    check(z.dtype == torch.bfloat16 and z.shape == mu.shape, "K3 z dtype/shape")
-    z_diff = (z.float() - z_plain.float()).abs()
-    # at most 1 ulp of bf16, taken at the larger of the two values
-    beyond = int((z_diff > ulp(torch.maximum(z.abs(), z_plain.abs()))).sum())
-    check(bool(torch.isfinite(z).all()) and beyond == 0,
-          f"K3 z vs plain with K3's eps: {beyond} elements more than 1 ulp apart, max diff {float(z_diff.max())}")
-    errs["K3"] = max(kl_err, float(z_diff.max()))
-    mu_s = torch.full((4096, 16), 2.0, device=dev)
-    lv_s = torch.full((4096, 16), math.log(0.25), device=dev)
-    z_s, _ = ops.reparam_kl(mu_s, lv_s, 7)
-    z_mean, z_std = float(z_s.mean()), float(z_s.std())
-    check(abs(z_mean - 2.0) < 0.01 and abs(z_std - 0.5) < 0.01, f"K3 z mean {z_mean} std {z_std}")
-    check(torch.equal(ops.reparam_kl(mu_s, lv_s, 7)[0], z_s), "K3 same seed, different z")
-    check(not torch.equal(ops.reparam_kl(mu_s, lv_s, 8)[0], z_s), "K3 another seed, same z")
-    log(f"  K3: KL {float(kl):.6f} plain {float(kl_plain):.6f} |err| {kl_err:.3e}; z [{BATCH},10] bf16 vs plain "
-        f"with K3's eps max |err| {float(z_diff.max()):.3e}, {int((z != z_plain).sum())} of {z.numel()} not bitwise "
-        f"equal, {beyond} beyond 1 ulp; z over [4096,16] mean {z_mean:.5f} std {z_std:.5f}")
     log("  first-launch (build + run) s: " + ", ".join(f"{k} {v:.2f}" for k, v in build.items()))
 
     # timings: kernel, plain version, library yardstick (one PyTorch call, used nowhere in the port)
     lib_logits = logits.detach().requires_grad_(True)
     lib_loss = F.binary_cross_entropy_with_logits(lib_logits, targets)
-    eps_gen = torch.Generator(device=dev).manual_seed(1)
     times = {
         "K1": (
             time_ms(lambda: ops.bce_mean(logits, targets)),
@@ -244,18 +249,119 @@ def kernels_phase(dev):
             time_ms(lambda: ops.bce_mean_grad_plain(logits, targets, g)),
             time_ms(lambda: torch.autograd.grad(lib_loss, lib_logits, grad_outputs=g, retain_graph=True)),
         ),
-        "K3": (
-            time_ms(lambda: ops.reparam_kl(mu, lv, 1234)),
-            time_ms(lambda: ops.reparam_kl_plain(mu, lv, torch.randn(mu.shape, generator=eps_gen, device=dev))),
-            None,
-        ),
     }
     sizes = {
         "K1": (n, n * (logits.element_size() + targets.element_size()) + 4),
         "K2": (n, n * (2 * logits.element_size() + targets.element_size()) + 4),
-        "K3": (mu.numel(), mu.numel() * 3 * mu.element_size() + 4),
     }
     return errs, times, sizes
+
+
+def check_k3(mu, lv, seed: int, label: str) -> float:
+    """K3's forward against the whole plain function (draw included) on one
+    input: z within 1 ulp of its dtype, KL rel <= 1e-5, repeat runs bitwise
+    equal. Returns the larger max error."""
+    z, kl = ops.reparam_kl(mu, lv, seed)
+    z_again, kl_again = ops.reparam_kl(mu, lv, seed)
+    check(torch.equal(z, z_again) and torch.equal(kl, kl_again), f"K3 repeat not bitwise equal ({label})")
+    z_plain, kl_plain = ops.reparam_kl_plain(mu, lv, ops.k3_eps_plain(mu.shape, seed, mu.device))
+    check(z.dtype == mu.dtype and z.shape == mu.shape and kl.shape == (), f"K3 dtype/shape ({label})")
+    kl_err = abs(float(kl) - float(kl_plain))
+    check(kl_err <= 1e-5 * abs(float(kl_plain)), f"K3 KL {float(kl)} vs plain {float(kl_plain)} ({label})")
+    z_diff = (z.float() - z_plain.float()).abs()
+    # at most 1 ulp of z's dtype, taken at the larger of the two values
+    beyond = int((z_diff > ulp(torch.maximum(z.abs(), z_plain.abs()))).sum())
+    check(bool(torch.isfinite(z).all()) and beyond == 0,
+          f"K3 z vs plain ({label}): {beyond} elements more than 1 ulp apart, max diff {float(z_diff.max())}")
+    log(f"  K3 {label}: KL {float(kl):.6f} plain {float(kl_plain):.6f} rel err {kl_err / abs(float(kl_plain)):.3e}; "
+        f"z max |err| {float(z_diff.max()):.3e}, {int((z != z_plain).sum())} of {z.numel()} not bitwise equal, "
+        f"{beyond} beyond 1 ulp; repeat bitwise equal")
+    return max(kl_err, float(z_diff.max()))
+
+
+def check_k3_grad(mu, lv, z, g_z, g_kl, label: str) -> float:
+    """K3's backward against its plain version: each gradient within 1 ulp of its dtype."""
+    got = ops.reparam_kl_grad(mu, lv, z, g_z, g_kl)
+    want = ops.reparam_kl_bwd_plain(mu, lv, z, g_z, g_kl)
+    worst = 0.0
+    for name, k, p in zip(("d_mu", "d_lv"), got, want):
+        check(k.dtype == p.dtype and k.shape == p.shape, f"K3 backward {name} dtype/shape ({label})")
+        diff = (k.float() - p.float()).abs()
+        beyond = int((diff > ulp(torch.maximum(k.abs(), p.abs()))).sum())
+        check(bool(torch.isfinite(k).all()) and beyond == 0,
+              f"K3 backward {name} ({label}): {beyond} elements beyond 1 ulp, max diff {float(diff.max())}")
+        log(f"  K3 backward {label}: {name} max |err| {float(diff.max()):.3e}, {int((k != p).sum())} of {k.numel()} "
+            f"not bitwise equal, {beyond} beyond 1 ulp")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def k3_phase(dev):
+    """K3's draw, forward and backward against their plain versions on the
+    card, and their timings."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = (BATCH, FLAGSHIP["latent_dim"])
+    mu = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    lv = (0.3 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    ops.reparam_kl(mu, lv, 1234)
+    torch.cuda.synchronize()
+    first_launch = time.perf_counter() - t0
+
+    # the draw: K3's eps read back against the plain Philox draw on the card
+    eps, eps_plain = k3_eps(shape, 1234, dev), ops.k3_eps_plain(shape, 1234, dev)
+    eps_diff = (eps - eps_plain).abs()
+    beyond = int((eps_diff > 2 * ulp(torch.maximum(eps.abs(), eps_plain.abs()))).sum())
+    check(bool(torch.isfinite(eps).all()) and beyond == 0,
+          f"K3 eps vs plain draw: {beyond} elements beyond 2 f32 ulp, max diff {float(eps_diff.max())}")
+    log(f"  K3 eps {list(shape)} vs plain Philox draw: max |err| {float(eps_diff.max()):.3e}, "
+        f"{int((eps != eps_plain).sum())} of {eps.numel()} not bitwise equal, {beyond} beyond 2 f32 ulp")
+
+    errs = [check_k3(mu, lv, 1234, f"flagship {list(shape)} bf16")]
+    ragged = torch.randn((3, 7), generator=gen, device=dev)
+    ragged_lv = 0.3 * torch.randn((3, 7), generator=gen, device=dev)
+    errs.append(check_k3(ragged, ragged_lv, 5, "ragged [3,7] f32"))
+    errs.append(check_k3(ragged.half(), ragged_lv.half(), 5, "ragged [3,7] f16"))
+    big = torch.randn((65536, 16), generator=gen, device=dev).to(torch.bfloat16)
+    errs.append(check_k3(big, (0.3 * torch.randn((65536, 16), generator=gen, device=dev)).to(torch.bfloat16), 77,
+                         "[65536,16] bf16, 128 elements per thread"))
+    mu_s = torch.full((4096, 16), 2.0, device=dev)
+    lv_s = torch.full((4096, 16), math.log(0.25), device=dev)
+    z_s, _ = ops.reparam_kl(mu_s, lv_s, 7)
+    z_mean, z_std = float(z_s.mean()), float(z_s.std())
+    check(abs(z_mean - 2.0) < 0.01 and abs(z_std - 0.5) < 0.01, f"K3 z mean {z_mean} std {z_std}")
+    check(torch.equal(ops.reparam_kl(mu_s, lv_s, 7)[0], z_s), "K3 same seed, different z")
+    check(not torch.equal(ops.reparam_kl(mu_s, lv_s, 8)[0], z_s), "K3 another seed, same z")
+    log(f"  K3 z over [4096,16] mean {z_mean:.5f} std {z_std:.5f}; same seed same z, another seed another z")
+
+    z, _ = ops.reparam_kl(mu, lv, 1234)
+    g_z = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    bwd_errs = [
+        check_k3_grad(mu, lv, z, g_z, None, "flagship bf16, no g_kl"),
+        check_k3_grad(mu, lv, z, g_z, torch.full((), 5.0, device=dev), "flagship bf16, g_kl 5"),
+    ]
+    log(f"  K3 first launch (run only; built above) {first_launch:.3f} s")
+
+    n = mu.numel()
+    times = {
+        "K3": (
+            time_ms(lambda: ops.reparam_kl(mu, lv, 1234)),
+            time_ms(lambda: ops.reparam_kl_plain(mu, lv, ops.k3_eps_plain(shape, 1234, dev))),
+            None,
+        ),
+        "K3-bwd": (
+            time_ms(lambda: ops.reparam_kl_grad(mu, lv, z, g_z)),
+            time_ms(lambda: ops.reparam_kl_bwd_plain(mu, lv, z, g_z)),
+            None,
+        ),
+    }
+    sizes = {
+        # mu, log_var read, z written, kl (4 B) written
+        "K3": (n, n * 3 * mu.element_size() + 4),
+        # the main path's backward has no g_kl: mu, z, g_z read, d_mu, d_lv written (log_var is not needed)
+        "K3-bwd": (n, n * 5 * mu.element_size()),
+    }
+    return {"K3": max(errs), "K3-bwd": max(bwd_errs)}, times, sizes
 
 
 # ================================================================= train
@@ -270,10 +376,10 @@ def train_phase(dev):
     kl_schedule = kl_weight_schedule("constant", KL_WEIGHT)
 
     # reference: one unfused step from the same weights and batch, given the
-    # eps that K3 draws in the first fused step (same seed → same Philox draw)
+    # plain draw of the first fused step's seed (K3 draws the same, k3_phase)
     ref = build_model("FoldedVAE", dtype=torch.bfloat16, fused_reparam=True, seed=0, device=dev, **FLAGSHIP)
     ref.load_state_dict(init_weights)
-    eps = k3_eps((BATCH, FLAGSHIP["latent_dim"]), derive_step_seed(epoch_seed, 0), dev)
+    eps = ops.k3_eps_plain((BATCH, FLAGSHIP["latent_dim"]), derive_step_seed(epoch_seed, 0), dev)
     ref_state = create_train_state(ref, build_optimizer(ref, param_group_label, **OPTIMIZER))
     _, ref_lo, _ = make_train_step(kl_schedule, fused_loss=False)(ref_state, x0, epoch_seed, eps=eps)
     ref_loss = ref_lo.loss.item()
@@ -303,7 +409,7 @@ def train_phase(dev):
     for key, c in counts.items():
         check(c == TRAIN_STEPS, f"{key} launched {c} times in {TRAIN_STEPS} fused steps")
     rel = abs(losses[0] - ref_loss) / abs(ref_loss)
-    log(f"  first fused step loss {losses[0]:.7f} vs unfused step with K3's eps {ref_loss:.7f}: rel {rel:.2e}")
+    log(f"  first fused step loss {losses[0]:.7f} vs unfused step with the plain draw {ref_loss:.7f}: rel {rel:.2e}")
     check(rel <= 1e-3, "fused and unfused first-step losses differ")
     med = statistics.median(step_ms)
     log(f"  launches in {TRAIN_STEPS} fused steps: {counts}; peak memory {peak_gib:.2f} GiB")
@@ -311,14 +417,14 @@ def train_phase(dev):
         f"in {sum(step_ms):.3f} ms); step time median {med:.3f} ms, min {min(step_ms):.3f} ms, "
         f"max {max(step_ms):.3f} ms over {TRAIN_STEPS} steps, bf16, batch {BATCH}, incl. batch generation "
         f"[{card_line()}]")
-    profile_steps(state, step, data_gen, epoch_seed, dev, med)
-    return model, counts, med
+    device_ms = profile_steps(state, step, data_gen, epoch_seed, dev, med)
+    return model, counts, device_ms
 
 
 # kernel-name fragments → layer, for the profile's breakdown (first match wins)
-OUR_KERNELS = ("_bce_partial_kernel", "_sum_partials_kernel", "_bce_grad_kernel", "_reparam_kl_kernel")
+OUR_KERNELS = tuple(f for info in KERNEL_INFO.values() for f in info[4])
 LAYERS = (
-    ("K1-K3 (Triton)", OUR_KERNELS),
+    ("K1-K3 (Triton, CUDA C++)", OUR_KERNELS),
     ("convs and dense (cuDNN, cuBLAS)", ("xmma", "cutlass", "gemm", "conv", "wgrad", "dgrad", "nvjet", "splitK")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("batch generation (scatter, random)", ("scatter", "distribution", "random")),
@@ -326,11 +432,12 @@ LAYERS = (
 )
 
 
-def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_steps: int = 3) -> None:
+def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_steps: int = 3) -> dict:
     """Device time by kernel and by layer over a few more fused steps
     (torch.profiler), and the device's busy share of ``step_ms``, the
     median step time measured without the profiler (whose own host cost
-    lengthens the profiled window)."""
+    lengthens the profiled window). Returns each of our kernels' device ms
+    per step (one call per step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -369,9 +476,13 @@ def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_step
     ))
     log("  kernels by device time:")
     for i, e in enumerate(kernels):
-        if i < 15 or e.key in OUR_KERNELS:
+        if i < 15 or any(f in e.key for f in OUR_KERNELS):
             ms = e.self_device_time_total / n_steps / 1e3
             log(f"    {ms:8.4f} ms/step {ms / busy_ms:6.1%} x{e.count // n_steps:<4d} {e.key[:100]}")
+    return {
+        key: sum(e.self_device_time_total for e in kernels if any(f in e.key for f in info[4])) / n_steps / 1e3
+        for key, info in KERNEL_INFO.items()
+    }
 
 
 # ============================================================= reconstruct
@@ -411,7 +522,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     check(torch.cuda.device_count() == 1, f"needs exactly one visible CUDA device, found {torch.cuda.device_count()}")
-    os.environ.setdefault("TRITON_CACHE_DIR", str(Path(__file__).resolve().parent / "build" / "triton"))
+    root = Path(__file__).resolve().parent
+    os.environ.setdefault("TRITON_CACHE_DIR", str(root / "build" / "triton"))
+    os.environ.setdefault(cuda_lib.BUILD_DIR_ENV, str(root / "build" / "kernels"))
     import triton
 
     torch.backends.cudnn.allow_tf32 = False
@@ -422,33 +535,40 @@ def main() -> int:
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), triton {triton.__version__}; TF32 off (cuDNN, cuBLAS)")
 
     t0 = time.perf_counter()
-    log("kernels vs plain versions on the card:")
+    log("build the CUDA C++ kernels:")
+    build_phase()
+    log("K1, K2 (Triton) vs plain versions on the card:")
     errs, times, sizes = kernels_phase(dev)
+    log("K3 (CUDA C++) vs plain versions on the card:")
+    for part, more in zip((errs, times, sizes), k3_phase(dev)):
+        part.update(more)
     log(f"train ({TRAIN_STEPS} fused steps, flagship FoldedVAE):")
-    model, counts, _ = train_phase(dev)
+    model, counts, device_ms = train_phase(dev)
     log("reconstruct:")
     reconstruct_phase(model, dev)
 
     kernels = []
-    for key, (name, replaces) in KERNEL_INFO.items():
+    for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
         ms, plain_ms, library_ms = times[key]
         bound, bound_by = bound_ms(key, *sizes[key])
         kernels.append(
             {
                 "name": name,
-                "route": "triton",
-                "source": "midi_vae_tpu_torch/ops/fused_elbo.py",
+                "route": route,
+                "source": source,
                 "replaces": replaces,
                 "launches": counts[key],
                 "max_abs_err": errs[key],
                 "ms": ms,
+                "device_ms": device_ms[key],
                 "plain_ms": plain_ms,
                 "bound_ms": bound,
                 "bound_by": bound_by,
                 "library_ms": library_ms,
             }
         )
-        log(f"  {key}: {ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms}, bound {bound:.4f} by {bound_by})")
+        log(f"  {key}: {ms:.4f} ms, device {device_ms[key]:.4f} ms (plain {plain_ms:.4f}, library {library_ms}, "
+            f"bound {bound:.7f} by {bound_by})")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -383,8 +383,9 @@ class VanillaVAE(nn.Module):
 
         ``eps`` given: used as the draw (cast to mu's dtype), through plain
         autograd — the hook tests use to inject the JAX side's draw.
-        Otherwise ``seed`` keys the draw: the K3 kernel's Philox stream with
-        ``fused_reparam=True``, else a ``torch.Generator`` on mu's device.
+        Otherwise ``seed`` keys the draw: K3's Philox stream with
+        ``fused_reparam=True`` (the kernel on the card, its plain version on
+        the CPU: the same noise), else a ``torch.Generator`` on mu's device.
         """
         if eps is not None:
             return mu + eps.to(mu.dtype) * torch.exp(0.5 * log_var)

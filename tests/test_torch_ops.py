@@ -92,8 +92,9 @@ def test_reparam_kl_plain_matches_pallas_with_its_eps():
 
 
 def test_reparam_kl_cpu_draws_standard_normal_eps():
-    """The CPU path keys a torch generator with the seed: z ~ N(mu, exp(lv)),
-    the same seed repeats, another seed differs; KL does not depend on the draw."""
+    """The CPU path draws K3's Philox noise (k3_eps_plain) keyed by the seed:
+    z ~ N(mu, exp(lv)), the same seed repeats, another seed differs; KL does
+    not depend on the draw."""
     mu = torch.full((4096, 16), 2.0)
     lv = torch.full((4096, 16), float(np.log(0.25)))
     z, kl = ops.reparam_kl(mu, lv, 7)
@@ -141,8 +142,9 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     logits, targets = (torch.from_numpy(a) for a in _bce_case((2, 4, 4, 1), 0))
     ops.bce_mean(logits, targets)
     ops.bce_mean_grad(logits, targets, torch.tensor(1.0))
-    ops.reparam_kl(torch.zeros(2, 3), torch.zeros(2, 3), 1)
-    assert ops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0}
+    z, _ = ops.reparam_kl(torch.zeros(2, 3), torch.zeros(2, 3), 1)
+    ops.reparam_kl_grad(torch.zeros(2, 3), torch.zeros(2, 3), z, torch.ones(2, 3), torch.tensor(1.0))
+    assert ops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K3-bwd": 0}
     meta = torch.empty((2, 4, 4, 1), device="meta")
     with pytest.raises(ValueError, match="no kernel and no plain path"):
         ops.bce_mean(meta, meta)
