@@ -14,15 +14,16 @@ From the repository root. It
 3. builds the Triton kernels K1 and K2 of
    ``midi_vae_tpu_torch/ops/fused_elbo.py`` (into ``build/triton/`` unless
    ``TRITON_CACHE_DIR`` is set), holds each against its plain PyTorch
-   version on the card at the flagship shapes, a ragged shape and a
-   saturated one, and times kernel, plain version and the library
-   yardstick with CUDA events;
+   version on the card at the flagship shapes, the train CLI's batch of
+   100, a ragged shape and a saturated one, and times kernel, plain
+   version and the library yardstick with CUDA events;
 4. holds K3 (CUDA C++) against its plain version: its noise, read back
    from K3 itself (with mu = 0 and log_var = 0 in f32 it writes z = eps
    exactly), against the plain Philox draw; its z and KL against the whole
-   plain function at the flagship shape, a ragged one and one past a
-   single CTA's reach; its backward against the plain backward, with and
-   without a KL gradient; and times both;
+   plain function at the flagship shape, the train CLI's [100, 10] and
+   [8, 10] (a reconstruction grid), a ragged one and one past a single
+   CTA's reach; its backward against the plain backward at the flagship
+   shape and [100, 10], with and without a KL gradient; and times both;
 5. trains the flagship FoldedVAE (fold 8, hidden (48, 64, 128, 256),
    latent 10, bf16, batch 2048 of 128×128 synthetic piano rolls, AdamW
    under OneCycle, β 2.5e-4) through the fused kernels, checks that each
@@ -33,7 +34,20 @@ From the repository root. It
    busy share of the step);
 6. reconstructs a batch in eval mode (posterior mean), and checks the
    model on the card against the same model on the CPU at a small batch;
-7. prints one ``{"kernels": [...]}`` line, the card line again, and as the
+7. drives the train CLI, ``midi_vae_tpu_torch.cli.train.cli``, in this
+   process on ``configs/folded.yaml`` (the ``midi-synthetic`` corpus,
+   generated under ``build/tmp/``; runs under ``build/cli_models/``):
+   two of three epochs with ``--fused --bce-targets normalized``, checking
+   that the loss falls, both checkpoints are written and each kernel
+   launched exactly as often as the run's steps and eval batches need;
+   the resume of that run from its latest checkpoint to epoch 3 with the
+   counters carried over and the final sweeps; and one epoch of the config
+   as written (raw targets, ``output_bias_init: auto``, unfused) with
+   finite metrics; times the fused step alone at the CLI's batch of 100,
+   with a profile (the device's busy share at that batch); and holds the
+   host loader (pinned buffers, side-stream copies) against the
+   device-resident one, batch for batch;
+8. prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
@@ -47,9 +61,11 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -67,6 +83,7 @@ from midi_vae_tpu_torch.train.state import create_train_state, derive_step_seed,
 
 FLAGSHIP = dict(in_channels=1, latent_dim=10, input_dim=128, hidden_dims=(48, 64, 128, 256), fold=8)
 BATCH = 2048
+CLI_BATCH = 100  # configs/folded.yaml's batch_size
 TRAIN_STEPS = 30
 KL_WEIGHT = 2.5e-4  # bench.py's constant β
 OPTIMIZER = dict(optimizer="AdamW", lr=1e-3, scheduler="OneCycle", total_steps=10000)  # bench.py:127-138
@@ -222,7 +239,12 @@ def kernels_phase(dev):
     errs["K1"], errs["K2"] = check_bce(logits, targets, g, f"flagship {list(shape)} bf16 logits, f32 targets")
     ragged_l = 3.0 * torch.randn((3, 5, 7, 1), generator=gen, device=dev)
     ragged_t = torch.rand((3, 5, 7, 1), generator=gen, device=dev) - 0.5
+    cli_shape = (CLI_BATCH, 128, 128, 1)
+    cli_t, _ = make_pianoroll_batch(gen, CLI_BATCH, device=dev)
     for label, (lg, tg) in {
+        f"train CLI batch {list(cli_shape)} bf16 logits, f32 targets": (
+            (3.0 * torch.randn(cli_shape, generator=gen, device=dev)).to(torch.bfloat16), cli_t - 0.5,
+        ),
         "ragged [3,5,7,1] f32": (ragged_l, ragged_t),
         "ragged [3,5,7,1] bf16": (ragged_l.to(torch.bfloat16), ragged_t),
         "saturated ±150 f32": (
@@ -322,6 +344,12 @@ def k3_phase(dev):
     ragged_lv = 0.3 * torch.randn((3, 7), generator=gen, device=dev)
     errs.append(check_k3(ragged, ragged_lv, 5, "ragged [3,7] f32"))
     errs.append(check_k3(ragged.half(), ragged_lv.half(), 5, "ragged [3,7] f16"))
+    # the train CLI's shapes: its batch (train steps, eval batches) and a reconstruction grid's 8 samples
+    cli = {}
+    for b in (CLI_BATCH, 8):
+        cli[b] = (torch.randn((b, shape[1]), generator=gen, device=dev).to(torch.bfloat16),
+                  (0.3 * torch.randn((b, shape[1]), generator=gen, device=dev)).to(torch.bfloat16))
+        errs.append(check_k3(*cli[b], 11, f"train CLI [{b},{shape[1]}] bf16"))
     big = torch.randn((65536, 16), generator=gen, device=dev).to(torch.bfloat16)
     errs.append(check_k3(big, (0.3 * torch.randn((65536, 16), generator=gen, device=dev)).to(torch.bfloat16), 77,
                          "[65536,16] bf16, 128 elements per thread"))
@@ -340,6 +368,11 @@ def k3_phase(dev):
         check_k3_grad(mu, lv, z, g_z, None, "flagship bf16, no g_kl"),
         check_k3_grad(mu, lv, z, g_z, torch.full((), 5.0, device=dev), "flagship bf16, g_kl 5"),
     ]
+    mu_c, lv_c = cli[CLI_BATCH]
+    z_c, _ = ops.reparam_kl(mu_c, lv_c, 11)
+    g_zc = torch.randn(mu_c.shape, generator=gen, device=dev).to(torch.bfloat16)
+    for g_kl, what in ((None, "no g_kl"), (torch.full((), 5.0, device=dev), "g_kl 5")):
+        bwd_errs.append(check_k3_grad(mu_c, lv_c, z_c, g_zc, g_kl, f"train CLI {list(mu_c.shape)} bf16, {what}"))
     log(f"  K3 first launch (run only; built above) {first_launch:.3f} s")
 
     n = mu.numel()
@@ -432,7 +465,7 @@ LAYERS = (
 )
 
 
-def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_steps: int = 3) -> dict:
+def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_steps: int = 3, batch: int = BATCH) -> dict:
     """Device time by kernel and by layer over a few more fused steps
     (torch.profiler), and the device's busy share of ``step_ms``, the
     median step time measured without the profiler (whose own host cost
@@ -445,7 +478,7 @@ def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_step
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            x, _ = make_pianoroll_batch(data_gen, BATCH, device=dev)
+            x, _ = make_pianoroll_batch(data_gen, batch, device=dev)
             state, lo, _ = step(state, x, epoch_seed)
         lo.loss.item()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -514,6 +547,145 @@ def reconstruct_phase(model, dev):
     check(max(errs) <= 1e-4, "model on the card disagrees with the CPU")
 
 
+# ===================================================================== cli
+
+
+def expected_cli_launches(r: dict, epochs: int) -> dict:
+    """Kernel launches of a fused CLI run of ``epochs`` epochs, from the
+    forwards the run reports: K1, K2 and K3's backward once per train step;
+    K3's forward once per train step, once per reconstruction grid and once
+    per eval batch (the eval forward samples z, as the JAX package's does)."""
+    f = r["forwards"]
+    check(f["train_steps"] == r["steps_per_epoch"] * epochs,
+          f"{f['train_steps']} train steps in {epochs} epochs of {r['steps_per_epoch']}")
+    steps = f["train_steps"]
+    return {"K1": steps, "K2": steps, "K3": steps + f["grid"] + f["eval_batches"], "K3-bwd": steps}
+
+
+def log_cli_run(label: str, r: dict, card: str) -> None:
+    c = r["corpus"]
+    log(f"  {label}: corpus {c['train']} train / {c['val']} val / {c['test']} test windows, fetched in "
+        f"{r['timings']['fetch_s']:.3f} s; {r['steps_per_epoch']} steps per epoch at batch {CLI_BATCH}; run "
+        f"{r['duration_total']:.3f} s [{card}]")
+    for h in r["history"]:
+        t = h["train"]
+        samples = r["steps_per_epoch"] * CLI_BATCH
+        phases = ", ".join(f"{k} {v:.3f} s" for k, v in t["phase_s"].items())
+        log(f"    epoch {h['epoch']}: train loss {t['loss']:.6f}, {t['throughput']:.1f} samples/s "
+            f"({samples / t['throughput']:.3f} s for {samples} samples; {phases}) [{card}]")
+
+
+def small_batch_steps(state, dev, card: str, batch: int = CLI_BATCH, n_steps: int = 20) -> None:
+    """The CLI's fused step at its batch, alone: the median of ``n_steps``
+    steps closed by reading the loss, then a profile of three more (the
+    device's busy share at this batch)."""
+    step = make_train_step(kl_weight_schedule("constant", KL_WEIGHT), fused_loss=True)
+    data_gen = torch.Generator(device=dev).manual_seed(4)
+    step_ms = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        x, _ = make_pianoroll_batch(data_gen, batch, device=dev)
+        state, lo, _ = step(state, x, 0)
+        lo.loss.item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(step_ms)
+    log(f"  fused step alone at batch {batch}: median {med:.3f} ms, min {min(step_ms):.3f} ms over {n_steps} steps "
+        f"({batch / med * 1e3:.1f} samples/s) [{card}]")
+    profile_steps(state, step, data_gen, 0, dev, med, batch=batch)
+
+
+def loader_phase(dev, card: str) -> None:
+    """The host loader (pinned buffers, copies on a side stream) against the
+    device-resident one on the card: the same batches, bitwise, for a train
+    epoch of the pianoroll stack (random shifts and scales) and an eval
+    epoch; and each loader's time per batch."""
+    from midi_vae_tpu_torch.data.fetch import fetch_dataset
+    from midi_vae_tpu_torch.data.pipeline import make_loader
+    from midi_vae_tpu_torch.data.transforms import get_transform
+
+    spec_train, spec_eval = get_transform("pianoroll", 128, {"normalization": "midi-synthetic"})
+    train, _, test, _ = fetch_dataset("midi-synthetic", transform_train=spec_train, transform_eval=spec_eval, device=dev)
+    for ds, is_train in ((train, True), (test, False)):
+        loaders = {p: make_loader(ds, CLI_BATCH, train=is_train, seed=0, device=dev, placement=p) for p in ("host", "device")}
+        batches = {p: list(ldr.epoch(2)) for p, ldr in loaders.items()}
+        same = all(torch.equal(a.x, b.x) and torch.equal(a.y, b.y) and torch.equal(a.mask, b.mask)
+                   for a, b in zip(batches["host"], batches["device"]))
+        check(len(batches["host"]) == len(batches["device"]) and same,
+              f"host and device-resident loaders disagree ({'train' if is_train else 'eval'})")
+        ms = {}
+        for p, ldr in loaders.items():
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in ldr.epoch(3))
+            torch.cuda.synchronize(dev)
+            ms[p] = (time.perf_counter() - t0) * 1e3 / n
+        log(f"  {'train' if is_train else 'eval'} epoch, {len(batches['host'])} batches of {CLI_BATCH}: host loader and "
+            f"device-resident loader bitwise equal; {ms['host']:.3f} vs {ms['device']:.3f} ms per batch [{card}]")
+
+
+def cli_phase(dev, root: Path, card: str) -> dict:
+    """The train CLI on ``configs/folded.yaml``: a fused run of two of three
+    epochs, its resume, and one epoch of the config as written. Returns the
+    kernel launches of the fused run."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+
+    models = root / "build" / "cli_models"
+    shutil.rmtree(models, ignore_errors=True)
+    tmp = root / "build" / "tmp"  # the synthetic corpus is generated anew, inside the checkout
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    tempfile.tempdir = str(tmp)
+    config = str(root / "configs" / "folded.yaml")
+    fused = ["--config", config, "--fused", "--bce-targets", "normalized", "--epochs", "3", "--seed", "0"]
+
+    ops.reset_launch_counts()
+    r1 = train_cli.cli(fused + ["--stop-after-epochs", "2", "--models-dir", str(models), "--run-name", "cli",
+                                "--run-id", "fused"])
+    counts = ops.launch_counts()
+    log_cli_run("fused, epochs 1-2 of 3", r1, card)
+    want = expected_cli_launches(r1, 2)
+    log(f"  launches {counts}, expected {want}")
+    check(counts == want, f"fused CLI run launched {counts}, expected {want}")
+    losses = [h["train"]["loss"] for h in r1["history"]]
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses) and losses[1] < losses[0],
+          f"train loss did not fall from epoch 1 to 2: {losses}")
+    run_dir = models / "midi-synthetic" / "cli__fused"
+    latest, best = run_dir / "checkpoint_latest.pt", run_dir / "best_model.pt"
+    check(latest.is_file() and best.is_file(), f"checkpoints missing under {run_dir}")
+    log(f"  epoch losses {losses}; {latest.name} and {best.name} written")
+
+    small_batch_steps(r1["state"], dev, card)
+    loader_phase(dev, card)
+
+    ops.reset_launch_counts()
+    r2 = train_cli.cli(fused + ["--checkpoint", str(latest)])
+    counts2 = ops.launch_counts()
+    log_cli_run("resumed, epoch 3", r2, card)
+    check(r2["start_epoch"] == 3 and [h["epoch"] for h in r2["history"]] == [3], "resume did not run epoch 3 alone")
+    check(r2["total_step"] == r1["total_step"] + r1["steps_per_epoch"], f"total_step {r2['total_step']}")
+    check(r2["n_samples_seen"] == r1["n_samples_seen"] + r1["steps_per_epoch"] * CLI_BATCH,
+          f"n_samples_seen {r2['n_samples_seen']}")
+    check(all(k in r2 for k in ("final_test", "final_train")), "final sweeps missing after the resume")
+    want2 = expected_cli_launches(r2, 1)
+    check(counts2 == want2, f"resumed CLI run launched {counts2}, expected {want2}")
+    log(f"  resumed at epoch 3: total_step {r1['total_step']} -> {r2['total_step']}, n_samples_seen "
+        f"{r1['n_samples_seen']} -> {r2['n_samples_seen']}; launches {counts2}; final test "
+        f"cross-entropy {r2['final_test']['cross-entropy']:.6f}")
+
+    ops.reset_launch_counts()
+    r3 = train_cli.cli(["--config", config, "--epochs", "1", "--seed", "0", "--models-dir", str(models),
+                        "--run-name", "cli", "--run-id", "as-written"])
+    log_cli_run("configs/folded.yaml as written (raw targets, auto bias, unfused), 1 epoch", r3, card)
+    metrics = [r3["train"]["loss"]] + [r3[p][k] for p in ("test", "final_test", "final_train")
+                                       for k in ("cross-entropy", "bce-objective", "kl", "mse", "mae")]
+    check(all(math.isfinite(v) for v in metrics), f"non-finite metrics in the as-written run: {metrics}")
+    check(ops.launch_counts() == {k: 0 for k in ops.KERNEL_WRAPPERS}, "the unfused run launched a kernel")
+    log(f"  as written: train loss {r3['train']['loss']:.6f}, final test bce-objective "
+        f"{r3['final_test']['bce-objective']:.6f}, active units {r3['final_test']['active-units']}; no kernel launched")
+    return counts
+
+
 # ==================================================================== main
 
 
@@ -546,6 +718,8 @@ def main() -> int:
     model, counts, device_ms = train_phase(dev)
     log("reconstruct:")
     reconstruct_phase(model, dev)
+    log("train CLI (configs/folded.yaml):")
+    cli_counts = cli_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -558,6 +732,7 @@ def main() -> int:
                 "source": source,
                 "replaces": replaces,
                 "launches": counts[key],
+                "cli_launches": cli_counts[key],
                 "max_abs_err": errs[key],
                 "ms": ms,
                 "device_ms": device_ms[key],

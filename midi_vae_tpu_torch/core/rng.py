@@ -1,0 +1,52 @@
+"""Seeds of a run (counterpart of ``midi_vae_tpu/core/rng.py``).
+
+Two kinds of randomness, both stable under a resume at any epoch:
+
+- host shuffles: :func:`host_epoch_seed` and :func:`host_rng` are the JAX
+  package's own numpy functions, so a loader walks the same permutation
+  in both packages for a seed;
+- device draws: :func:`epoch_seed` is an integer per (run seed, epoch),
+  the counterpart of ``epoch_key``; each step's reparameterization seed is
+  :func:`derive_step_seed` of (epoch seed, step), so a resumed run
+  replays the draws of an uninterrupted one. The loaders key a batch's
+  random transforms the same way from :func:`host_epoch_seed`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# the clamp the JAX package applies before seeding (core/rng.py:28)
+_SEED_MODULUS = 0xFFFF_FFFF
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """Integer seed of one epoch, in [0, 2**31): depends only on (seed,
+    epoch), never on how many epochs this process ran."""
+    if epoch == 0:
+        raise ValueError("Epoch must be indexed from 1, not 0.")
+    ss = np.random.SeedSequence([seed % _SEED_MODULUS, epoch, 0x5EED])
+    return int(ss.generate_state(1, dtype=np.uint32)[0]) & 0x7FFFFFFF
+
+
+def derive_step_seed(epoch_seed: int, step: int) -> int:
+    """The seed of ``step`` within an epoch, in [0, 2**31): a SplitMix-style
+    hash of (epoch seed, step) on the host — the counterpart of
+    ``fold_in(epoch_key, step)``, with no device work."""
+    key = (int(epoch_seed) * 0x9E3779B97F4A7C15 + int(step)) % 2**64
+    key = ((key ^ (key >> 31)) * 0xBF58476D1CE4E5B9) % 2**64
+    return (key ^ (key >> 32)) & 0x7FFFFFFF
+
+
+def host_epoch_seed(seed: int, epoch: int, process_index: int = 0) -> int:
+    """Deterministic integer seed for host-side numpy shuffling: stable under
+    resume, distinct across epochs and processes (as the JAX package's)."""
+    if epoch == 0:
+        raise ValueError("Epoch must be indexed from 1, not 0.")
+    ss = np.random.SeedSequence([seed % _SEED_MODULUS, epoch, process_index])
+    return int(ss.generate_state(1, dtype=np.uint32)[0])
+
+
+def host_rng(seed: int, epoch: int, process_index: int = 0) -> np.random.Generator:
+    """Numpy Generator seeded with :func:`host_epoch_seed`."""
+    return np.random.default_rng(host_epoch_seed(seed, epoch, process_index))

@@ -4,6 +4,8 @@
 reconstruction = clamped BCE from logits, mean over every element;
 KL = −0.5·mean_batch(sum_latent(1 + log_var − mu² − exp(log_var))), in f32;
 total = reconstruction + kld_weight·KL; ``kld_loss`` is the negated KL.
+Options: free bits (a per-dimension KL floor on the optimised term) and
+BCE targets de-normalised back to [0, 1] (``--bce-targets raw``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,28 @@ def kl_gaussian(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
     return -0.5 * torch.mean(torch.sum(1.0 + log_var - mu**2 - torch.exp(log_var), dim=-1))
 
 
+def kl_gaussian_free_bits(mu: torch.Tensor, log_var: torch.Tensor, free_bits: float) -> torch.Tensor:
+    """Free-bits KL (Kingma et al. 2016): per-dimension batch-mean KL floored
+    at ``free_bits`` nats, summed over dimensions, in f32. Dimensions under
+    the floor add a constant and get no gradient."""
+    mu, log_var = mu.float(), log_var.float()
+    kl_dim = -0.5 * torch.mean(1.0 + log_var - mu**2 - torch.exp(log_var), dim=0)
+    return torch.sum(torch.clamp_min(kl_dim, free_bits))
+
+
+def denormalized_targets(targets: torch.Tensor, target_denorm) -> torch.Tensor:
+    """Undo the input normalisation on the BCE targets: t·std + mean, clipped
+    to [0, 1]. ``target_denorm`` is ``((mean, ...), (std, ...))``, one value
+    per channel of the NHWC targets."""
+    mean, std = target_denorm
+    t = targets.float()
+    if len(std) == 1:  # Python floats: no host-to-device copy per step
+        return torch.clamp(t * float(std[0]) + float(mean[0]), 0.0, 1.0)
+    std_c = torch.tensor(std, dtype=t.dtype, device=t.device).reshape(1, 1, 1, -1)
+    mean_c = torch.tensor(mean, dtype=t.dtype, device=t.device).reshape(1, 1, 1, -1)
+    return torch.clamp(t * std_c + mean_c, 0.0, 1.0)
+
+
 def elbo_loss(
     output: ModelOutput,
     kld_weight: float = 1.0,
@@ -52,19 +76,21 @@ def elbo_loss(
     """VAE loss on the unfused path (reference: ``VanillaVAE.loss``).
 
     ``kld_weight`` is a host float (the schedules' output).
-    ``log_var_clamp`` clips log_var before the KL. ``free_bits`` and
-    ``target_denorm`` are not ported yet and raise.
+    ``log_var_clamp`` clips log_var before the KL. ``free_bits`` floors
+    the optimised KL term per dimension (:func:`kl_gaussian_free_bits`);
+    the reported ``kl`` stays the true KL. ``target_denorm`` takes the
+    BCE against the de-normalised targets (:func:`denormalized_targets`).
     """
-    if free_bits is not None:
-        raise NotImplementedError("free_bits is not ported to the PyTorch package yet")
+    targets = output.input
     if target_denorm is not None:
-        raise NotImplementedError("target_denorm (raw BCE targets) is not ported to the PyTorch package yet")
-    loss_recon = torch.mean(bce_from_logits(output.logits, output.input, pos_weight))
+        targets = denormalized_targets(targets, target_denorm)
+    loss_recon = torch.mean(bce_from_logits(output.logits, targets, pos_weight))
     log_var = output.encoded.log_var
     if log_var_clamp is not None:
         log_var = log_var.clamp(log_var_clamp[0], log_var_clamp[1])
     kl = kl_gaussian(output.encoded.mu, log_var)
-    loss = loss_recon + kld_weight * kl
+    kl_term = kl if free_bits is None else kl_gaussian_free_bits(output.encoded.mu, log_var, free_bits)
+    loss = loss_recon + kld_weight * kl_term
     return LossOutput(
         loss=loss,
         reconstruction_loss=loss_recon.detach(),

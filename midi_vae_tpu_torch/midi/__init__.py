@@ -1,0 +1,1 @@
+"""See the module docstrings; counterpart of ``midi_vae_tpu.midi``."""

@@ -1,7 +1,7 @@
 """Optimizer construction (counterpart of ``midi_vae_tpu/train/optim.py``):
 AdamW with one parameter group per label, per-group peak LR, OneCycle
 with β1 cycling, encoder freezing and global-norm clipping. Not ported
-yet: the other optimizers and the LR scaling helper of the JAX CLI.
+yet: the other optimizers (ROADMAP Queue 1 item 17).
 
 optax's ``inject_hyperparams`` evaluates the schedules at the step count
 before each update; here :func:`set_step_hyperparams` writes the same
@@ -21,6 +21,12 @@ import torch
 from midi_vae_tpu_torch.train.schedules import Schedule, lr_schedule, onecycle_momentum
 
 _ADAM_B2 = 0.999  # optax and torch default
+BASE_BATCH_SIZE = 128  # the CLI's --lr is per this batch size
+
+
+def scale_lr(lr_relative: float, global_batch_size: int) -> float:
+    """Linear LR scaling with the global batch size."""
+    return lr_relative * global_batch_size / BASE_BATCH_SIZE
 
 
 class OptimizerBundle(NamedTuple):

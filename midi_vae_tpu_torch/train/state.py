@@ -6,19 +6,23 @@ computed on the host from the host step counter, and the loss terms and
 gradient norm come back as device scalars for the caller to read when it
 wants them.
 
-Not ported yet: ``grad_accum`` > 1, EMA of the parameters, the β-TC and
-VQ objectives.
+With ``ema_decay`` the step also keeps an exponential moving average of
+the parameters (``TrainState.ema_params``), the weights evaluation and
+best-model selection then use. Not ported yet: ``grad_accum`` > 1, the
+β-TC and VQ objectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from midi_vae_tpu_torch.core.rng import derive_step_seed
 from midi_vae_tpu_torch.core.types import LossOutput
 from midi_vae_tpu_torch.losses.elbo import elbo_loss
 from midi_vae_tpu_torch.ops.fused_elbo import fused_elbo_terms
@@ -28,28 +32,74 @@ from midi_vae_tpu_torch.train.optim import OptimizerBundle, set_step_hyperparams
 @dataclass
 class TrainState:
     """The model (parameters and BatchNorm running statistics), its
-    optimizer, and ``step``, the number of optimizer steps taken. The step
-    updates the model and optimizer in place and returns the state with
-    the next step count."""
+    optimizer, ``step``, the number of optimizer steps taken, and
+    ``ema_params`` (parameter name → its moving average) when EMA tracking
+    is on, else ``None``. The step updates model, optimizer and averages in
+    place and returns the state with the next step count."""
 
     model: nn.Module
     optimizer: OptimizerBundle
     step: int = 0
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
 
 
-def create_train_state(model: nn.Module, optimizer: OptimizerBundle) -> TrainState:
+def _param_copies(model: nn.Module) -> Dict[str, torch.Tensor]:
+    return {name: p.detach().clone() for name, p in model.named_parameters()}
+
+
+def create_train_state(model: nn.Module, optimizer: OptimizerBundle, *, ema: bool = False) -> TrainState:
     """Bundle a built model (parameters already initialised by
-    ``build_model``) with its optimizer at step 0."""
-    return TrainState(model=model, optimizer=optimizer, step=0)
+    ``build_model``) with its optimizer at step 0; ``ema=True`` seeds the
+    moving average with copies of the parameters."""
+    return TrainState(model=model, optimizer=optimizer, step=0, ema_params=_param_copies(model) if ema else None)
 
 
-def derive_step_seed(epoch_seed: int, step: int) -> int:
-    """The reparameterization seed of ``step``, in [0, 2**31): a SplitMix-style
-    hash of (epoch seed, step) on the host — the counterpart of
-    ``fold_in(epoch_key, step)``, with no device work."""
-    key = (int(epoch_seed) * 0x9E3779B97F4A7C15 + int(step)) % 2**64
-    key = ((key ^ (key >> 31)) * 0xBF58476D1CE4E5B9) % 2**64
-    return (key ^ (key >> 32)) & 0x7FFFFFFF
+def state_dict(state: TrainState) -> dict:
+    """The state as plain tensors, dicts and ints (the checkpoint payload):
+    ``model`` (parameters and running statistics), ``optimizer``, ``step``
+    and ``ema_params`` (``{}`` when EMA is off)."""
+    return {
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.optimizer.state_dict(),
+        "step": int(state.step),
+        "ema_params": dict(state.ema_params or {}),
+    }
+
+
+def reconcile_ema_state_dict(st_dict: dict, state: TrainState) -> dict:
+    """Normalise a checkpoint's state dict across EMA generations: a run
+    that tracks EMA resumed from a checkpoint without it seeds the average
+    from the restored parameters; a run without EMA drops a checkpoint's."""
+    st_dict = dict(st_dict)
+    if state.ema_params is not None and not st_dict.get("ema_params"):
+        params = dict(state.model.named_parameters())
+        st_dict["ema_params"] = {k: v.clone() for k, v in st_dict["model"].items() if k in params}
+    if state.ema_params is None:
+        st_dict["ema_params"] = {}
+    return st_dict
+
+
+def load_state_dict(state: TrainState, st_dict: dict) -> TrainState:
+    """Restore ``state`` in place from :func:`state_dict`'s payload (after
+    :func:`reconcile_ema_state_dict`); returns it with the restored step."""
+    state.model.load_state_dict(st_dict["model"])
+    state.optimizer.optimizer.load_state_dict(st_dict["optimizer"])
+    if state.ema_params is not None:
+        with torch.no_grad():
+            for name, t in state.ema_params.items():
+                t.copy_(st_dict["ema_params"][name])
+    return dataclasses.replace(state, step=int(st_dict["step"]))
+
+
+@torch.no_grad()
+def ema_update(ema_params: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> None:
+    """One EMA step in place: ``ema ← decay·ema + (1 − decay)·params``, with
+    decay and 1 − decay rounded to f32 as the JAX package computes them."""
+    d = np.float32(decay)
+    ema = [ema_params[name] for name, _ in model.named_parameters()]
+    params = [p.detach().to(e.dtype) for (_, p), e in zip(model.named_parameters(), ema)]
+    torch._foreach_mul_(ema, float(d))
+    torch._foreach_add_(ema, params, alpha=float(np.float32(1.0) - d))
 
 
 def make_loss(
@@ -131,9 +181,7 @@ def make_train_step(
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if grad_accum != 1:
-        raise NotImplementedError("grad_accum > 1 is not ported to the PyTorch package yet")
-    if ema_decay is not None:
-        raise NotImplementedError("EMA parameters are not ported to the PyTorch package yet")
+        raise NotImplementedError("grad_accum > 1 is not ported to the PyTorch package yet (ROADMAP Queue 1 item 7)")
     _loss = make_loss(
         loss_type=loss_type,
         fused_loss=fused_loss,
@@ -158,7 +206,13 @@ def make_train_step(
             for g in trainable:
                 g.mul_(coef)
         bundle.optimizer.step()
+        ema = state.ema_params
+        if ema_decay is not None:
+            if ema is None:  # resumed without averages: seed them from the parameters
+                ema = _param_copies(model)
+            else:
+                ema_update(ema, model, ema_decay)
         lo = dataclasses.replace(lo, loss=lo.loss.detach())
-        return TrainState(model=model, optimizer=bundle, step=state.step + 1), lo, grad_norm
+        return TrainState(model=model, optimizer=bundle, step=state.step + 1, ema_params=ema), lo, grad_norm
 
     return step

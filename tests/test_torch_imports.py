@@ -1,6 +1,7 @@
 """Import guard: the PyTorch port and its chip script stand alone. They
 import torch, never JAX, flax, optax or anything of the JAX package (not
-even its JAX-free modules: the port keeps its own copies)."""
+even its JAX-free modules: the port keeps its own copies), and not PyYAML
+or msgpack, which the GPU machine does not have."""
 
 import ast
 import pathlib
@@ -8,7 +9,7 @@ import pathlib
 import pytest
 
 _REPO = pathlib.Path(__file__).resolve().parents[1]
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "midi_vae_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "midi_vae_tpu", "yaml", "msgpack")
 
 
 def _port_sources():

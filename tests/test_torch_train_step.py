@@ -169,7 +169,7 @@ def test_loss_matches_jax(fused, pos_weight, log_var_clamp):
         (dict(loss_type="beta-tc"), NotImplementedError),
         (dict(grad_accum=0), ValueError),
         (dict(grad_accum=2), NotImplementedError),
-        (dict(ema_decay=0.99), NotImplementedError),
+        (dict(loss_type="vq"), NotImplementedError),
     ],
 )
 def test_step_option_checks(kwargs, error):
@@ -178,11 +178,17 @@ def test_step_option_checks(kwargs, error):
 
 
 def test_make_loss_unfused_free_bits_not_ported():
-    loss = make_loss(free_bits=0.1)
-    enc = EncoderOutput(mu=torch.zeros(2, 3), log_var=torch.zeros(2, 3), pre_latents=torch.zeros(2, 3))
+    """Free bits are ported now (the name is kept): the unfused loss takes
+    them and matches the JAX package's."""
+    mu, lv = np.full((2, 3), 0.2, np.float32), np.zeros((2, 3), np.float32)
+    enc = EncoderOutput(mu=torch.from_numpy(mu), log_var=torch.from_numpy(lv), pre_latents=torch.from_numpy(mu))
     out = ModelOutput(output=torch.zeros(2, 4), logits=torch.zeros(2, 4), input=torch.zeros(2, 4), encoded=enc, latents=enc.mu)
-    with pytest.raises(NotImplementedError):
-        loss(out, 1.0)
+    got = make_loss(free_bits=0.1)(out, 1.0)
+    jenc = JaxEncoderOutput(mu=jnp.asarray(mu), log_var=jnp.asarray(lv), pre_latents=jnp.asarray(mu))
+    jout = JaxModelOutput(output=jnp.zeros((2, 4)), logits=jnp.zeros((2, 4)), input=jnp.zeros((2, 4)), encoded=jenc, latents=jenc.mu)
+    want = jax_make_loss(free_bits=0.1)(jout, 1.0)
+    np.testing.assert_allclose(float(got.loss), float(want.loss), rtol=1e-6)
+    np.testing.assert_allclose(float(got.kl), float(want.kl), rtol=1e-6)
 
 
 def test_step_seeds_are_host_derived_and_distinct():
