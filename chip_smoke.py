@@ -47,7 +47,19 @@ From the repository root. It
    with a profile (the device's busy share at that batch); and holds the
    host loader (pinned buffers, side-stream copies) against the
    device-resident one, batch for batch;
-8. prints one ``{"kernels": [...]}`` line, the card line again, and as the
+8. drives the inference side on that fused run's ``best_model.pt``
+   (FoldedVAE at full width, served in f32 as the JAX package serves it):
+   the generate CLI's four modes with ``.mid`` export (PNGs written, the
+   files read back, values finite in [0, 1]); the evaluate CLI with IWAE-16
+   (checked against IWAE-1), MIG, latents and JSON; then ``serve`` on the
+   card and on the CPU, driven by ``ServingClient`` over both wires: served
+   reconstructions, encodings, interpolations and samples against the
+   loaded model on the card and against the CPU server (1e-4), 16 client
+   threads at once (every answer checked, requests coalesced), and the
+   latencies (first request per bucket, sequential single-roll p50/p99
+   and its parts, /sample, under load); no fused-ELBO kernel may launch in
+   any of it;
+9. prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
@@ -66,6 +78,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -88,6 +101,8 @@ TRAIN_STEPS = 30
 KL_WEIGHT = 2.5e-4  # bench.py's constant β
 OPTIMIZER = dict(optimizer="AdamW", lr=1e-3, scheduler="OneCycle", total_steps=10000)  # bench.py:127-138
 TIMING_LAUNCHES = 25
+SERVE_THREADS, SERVE_REQUESTS = 16, 8  # concurrent clients, requests each
+SEQUENTIAL_REQUESTS = 100
 
 # H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -686,6 +701,238 @@ def cli_phase(dev, root: Path, card: str) -> dict:
     return counts
 
 
+# =================================================================== serve
+
+
+def quantile_ms(seconds: list, q: int) -> float:
+    """The q-th percentile (1..99) of host-clock seconds, in ms."""
+    return statistics.quantiles([s * 1e3 for s in seconds], n=100, method="inclusive")[q - 1]
+
+
+def timed(fn, n: int) -> list:
+    """Host-clock seconds of ``n`` calls of ``fn``, each call closed by its own result."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def device_ms_per_call(fn, dev, n: int = 20):
+    """(device ms, kernels) per call of ``fn``: the kernels' device time and
+    count in a torch.profiler trace of ``n`` calls, over ``n``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(dev)
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        and not ("#" in e.key and "(" not in e.key)
+    ]
+    return sum(e.self_device_time_total for e in kernels) / n / 1e3, sum(e.count for e in kernels) / n
+
+
+def generate_and_evaluate(ckpt: Path, out: Path, card: str) -> None:
+    """The generate CLI's four modes (with .mid export, the threshold
+    calibrated once) and the evaluate CLI (IWAE-16 and IWAE-1, MIG, latents,
+    JSON) on the checkpoint, in this process."""
+    import numpy as np
+
+    from midi_vae_tpu_torch.cli import evaluate as evaluate_cli
+    from midi_vae_tpu_torch.cli import generate as generate_cli
+    from midi_vae_tpu_torch.midi.smf import read_smf
+
+    modes = {
+        "sample": (["-n", "16", "--export-threshold", "auto"], 16),
+        "reconstruct": (["-n", "16"], 32),  # input | reconstruction pairs
+        "interpolate": (["--steps", "8", "--slerp"], 8),
+        "traverse": (["--steps", "8"], FLAGSHIP["latent_dim"] * 8),
+    }
+    for mode, (extra, n) in modes.items():
+        png, mid = out / f"{mode}.png", out / f"mid_{mode}"
+        t0 = time.perf_counter()
+        images = generate_cli.cli(["--checkpoint", str(ckpt), "--mode", mode, "--out", str(png),
+                                   "--export-midi", str(mid)] + extra)
+        seconds = time.perf_counter() - t0
+        check(images.shape == (n, 128, 128, 1), f"generate {mode}: shape {images.shape}")
+        check(bool(np.isfinite(images).all()) and images.min() >= 0.0 and images.max() <= 1.0,
+              f"generate {mode}: values outside [0, 1]")
+        check(png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", f"generate {mode}: {png} is no PNG")
+        files = sorted(mid.glob("*.mid"))
+        notes = [read_smf(str(f)) for f in files]
+        check(len(files) == n and all(len(k) == 0 or int(k.pitch.max()) < 128 for k in notes),
+              f"generate {mode}: {len(files)} readable .mid files, expected {n}")
+        log(f"  generate --mode {mode} {' '.join(extra)}: {list(images.shape)} in [{images.min():.4f}, "
+            f"{images.max():.4f}], {png.name}, {n} .mid files ({sum(len(k) for k in notes)} notes) read back; "
+            f"{seconds:.3f} s [{card}]")
+
+    t0 = time.perf_counter()
+    res = evaluate_cli.cli(["--checkpoint", str(ckpt), "--partition", "test", "--iwae-samples", "16", "--mig",
+                            "--latents-out", str(out / "latents.npz"), "--json", str(out / "eval.json")])["test"]
+    seconds = time.perf_counter() - t0
+    one = evaluate_cli.cli(["--checkpoint", str(ckpt), "--partition", "test", "--iwae-samples", "1"])["test"]
+    keys = ("cross-entropy", "mse", "mae", "kl", "f1", "mig", "iwae-16")
+    check(all(math.isfinite(res[k]) for k in keys), f"evaluate: non-finite metrics {res}")
+    latents = np.load(out / "latents.npz")["latents_test"]
+    check(latents.shape == (res["count"], FLAGSHIP["latent_dim"]) and bool(np.isfinite(latents).all()),
+          f"evaluate: latents {latents.shape}")
+    check(json.loads((out / "eval.json").read_text())["test"]["count"] == res["count"], "evaluate: JSON")
+    check(res["iwae-16"] >= one["iwae-1"], f"IWAE-16 {res['iwae-16']} below IWAE-1 {one['iwae-1']}")
+    log(f"  evaluate --partition test ({res['count']} windows): cross-entropy {res['cross-entropy']:.6f}, "
+        f"kl {res['kl']:.5f}, f1 {res['f1']:.3f} %, mig {res['mig']:.5f}, iwae-16 {res['iwae-16']:.4f} >= "
+        f"iwae-1 {one['iwae-1']:.4f} nat/sample; {seconds:.3f} s [{card}]")
+
+
+def serve_phase(dev, root: Path, card: str) -> None:
+    """The inference side on the fused CLI run's ``best_model.pt``
+    (``configs/folded.yaml`` at full width): generate and evaluate, then the
+    HTTP server on the card, held against the loaded model on the card and
+    against the same checkpoint served on the CPU, under sequential and
+    concurrent clients, with its latencies. No kernel of ``ops/fused_elbo.py``
+    may launch: the inference model draws z plainly, as the JAX package's."""
+    import numpy as np
+
+    from midi_vae_tpu_torch.cli.generate import _fetch_eval_batch, _load_model_and_state
+    from midi_vae_tpu_torch.evaluation.inference import interpolate, sample_prior
+    from midi_vae_tpu_torch.serving.client import ServingClient
+    from midi_vae_tpu_torch.serving.server import serve
+    from midi_vae_tpu_torch.serving.wire import npy_dumps, npy_loads
+
+    t_phase = time.perf_counter()
+    ckpt = root / "build" / "cli_models" / "midi-synthetic" / "cli__fused" / "best_model.pt"
+    out = root / "build" / "serve"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ops.reset_launch_counts()
+
+    generate_and_evaluate(ckpt, out, card)
+
+    model, cfg, size, _, dataset = _load_model_and_state(str(ckpt), device=dev)
+    x_dev, _, _ = _fetch_eval_batch(dataset, None, size, 16, cfg, dev)
+    x = x_dev.cpu().numpy()
+    servers = {"card": serve(str(ckpt), port=0), "cpu": serve(str(ckpt), port=0, device="cpu")}
+    try:
+        url = {k: f"http://127.0.0.1:{h.server_address[1]}" for k, h in servers.items()}
+        client = ServingClient(url["card"])
+        service = servers["card"].service
+
+        # the first request of each bucket: the card meets the batch shape for the first time
+        first = {}
+        for n in (1, 2, 4, 8, 16):
+            first[n] = [timed(lambda: client.reconstruct(x[:n]), 1)[0], timed(lambda: client.reconstruct(x[:n]), 1)[0]]
+        log("  /reconstruct npy, first and second request per bucket: " + "; ".join(
+            f"{n}: {a * 1e3:.3f} / {b * 1e3:.3f} ms" for n, (a, b) in first.items()) + f" [{card}]")
+
+        # served vs the loaded model on the card, and vs the checkpoint served on the CPU
+        rows = x[:5]  # padded to bucket 8 by the server
+        with torch.inference_mode():
+            enc = model.encode(x_dev[:5], train=False)
+            direct = {"reconstruct": model.decode(enc.mu, train=False).cpu().numpy(),
+                      "encode": torch.cat([enc.mu, enc.log_var], -1).cpu().numpy(),
+                      "interpolate": interpolate(model, x_dev[:1], x_dev[1:2], steps=8, mode="slerp")[:, 0].cpu().numpy(),
+                      "sample": sample_prior(model, 16, 3).cpu().numpy()}
+        errs = {}
+        for wire in ("npy", "json"):
+            got = {}
+            for where in ("card", "cpu"):
+                c = ServingClient(url[where], wire=wire)
+                got[where] = {"reconstruct": c.reconstruct(rows), "encode": np.concatenate(c.encode(rows), axis=1),
+                              "interpolate": c.interpolate(x[0], x[1], steps=8, slerp=True), "sample": c.sample(16, 3)}
+            for key, want in direct.items():
+                check(got["card"][key].shape == want.shape and bool(np.isfinite(got["card"][key]).all()),
+                      f"served {key} ({wire}): shape {got['card'][key].shape}")
+                errs[(wire, key, "direct")] = float(np.abs(got["card"][key] - want).max())
+                errs[(wire, key, "cpu")] = float(np.abs(got["card"][key] - got["cpu"][key]).max())
+        worst = max(errs.values())
+        log("  served on the card vs the loaded model on the card / the checkpoint served on the CPU, max |err| "
+            "(f32, TF32 off): " + "; ".join(f"{w} {k} {e:.3e}" for (w, k, _), e in errs.items() if _ == "direct")
+            + " / " + "; ".join(f"{w} {k} {e:.3e}" for (w, k, _), e in errs.items() if _ == "cpu"))
+        check(worst <= 1e-4, f"served outputs disagree: {errs}")
+
+        # sequential single-roll requests over npy, after warm-up
+        one = x[:1]
+        timed(lambda: client.reconstruct(one), 10)
+        seq = timed(lambda: client.reconstruct(one), SEQUENTIAL_REQUESTS)
+        samples = timed(lambda: client.sample(16, 0), 20)
+        # where a single-roll request's time goes: the batcher in process
+        # (queue, wait window, dispatch), the dispatch alone (copy in,
+        # forward, copy out), the device's share of it, the npy wire
+        padded = np.ascontiguousarray(one)
+        in_process = timed(lambda: service.reconstruct(one), SEQUENTIAL_REQUESTS)
+        dispatch = timed(lambda: service._reconstruct_rows(padded), SEQUENTIAL_REQUESTS)
+        device, n_kernels = device_ms_per_call(lambda: service._reconstruct_rows(padded), dev)
+        wire = timed(lambda: npy_loads(npy_dumps(npy_loads(npy_dumps(one)))), SEQUENTIAL_REQUESTS)
+        p50 = {k: quantile_ms(v, 50) for k, v in
+               (("seq", seq), ("in_process", in_process), ("dispatch", dispatch), ("wire", wire))}
+        log(f"  /reconstruct, 1 roll, npy, sequential ({SEQUENTIAL_REQUESTS} after 10 warm-up): p50 "
+            f"{p50['seq']:.3f} ms, p99 {quantile_ms(seq, 99):.3f} ms [{card}]")
+        log(f"  its parts (p50): HTTP and handler {p50['seq'] - p50['in_process']:.3f} ms (of which npy encode and "
+            f"parse, both ways, {p50['wire']:.3f} ms); batcher queue and wait window "
+            f"{p50['in_process'] - p50['dispatch']:.3f} ms (max_wait_ms {service.reconstruct.max_wait * 1e3:g}); "
+            f"dispatch {p50['dispatch']:.3f} ms = device {device:.4f} ms ({n_kernels:.0f} kernels and copies) + host "
+            f"{p50['dispatch'] - device:.3f} ms (copy in, launches, copy out) [{card}]")
+        log(f"  /sample n=16, npy, sequential (20): p50 {quantile_ms(samples, 50):.3f} ms, "
+            f"p99 {quantile_ms(samples, 99):.3f} ms [{card}]")
+
+        # concurrent clients: each answer is its own request's, and requests coalesce
+        before = client.healthz()
+        rng = np.random.default_rng(0)
+        plan = [[(int(s), int(n)) for s, n in zip(rng.integers(0, 12, SERVE_REQUESTS), rng.integers(1, 5, SERVE_REQUESTS))]
+                for _ in range(SERVE_THREADS)]
+        with torch.inference_mode():
+            want = {(s, n): model.decode(model.encode(x_dev[s : s + n], train=False).mu, train=False).cpu().numpy()
+                    for reqs in plan for s, n in reqs}
+        latencies, errors = [], []
+
+        def worker(reqs):
+            c = ServingClient(url["card"])
+            try:
+                for s, n in reqs:
+                    t0 = time.perf_counter()
+                    got = c.reconstruct(x[s : s + n])
+                    latencies.append(time.perf_counter() - t0)
+                    if got.shape != (n, 128, 128, 1) or float(np.abs(got - want[(s, n)]).max()) > 1e-4:
+                        errors.append(f"request ({s}, {n}): wrong answer")
+            except Exception as e:  # noqa: BLE001 - every failure is reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=worker, args=(reqs,)) for reqs in plan]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "concurrent clients did not finish")
+        after = client.healthz()
+        served_n = after["requests_served"] - before["requests_served"]
+        batches = after["batches_dispatched"] - before["batches_dispatched"]
+        check(not errors and len(latencies) == SERVE_THREADS * SERVE_REQUESTS, f"concurrent load: {errors[:5]}")
+        check(served_n == SERVE_THREADS * SERVE_REQUESTS and batches < served_n,
+              f"{served_n} requests in {batches} device batches: no coalescing")
+        rolls = sum(n for reqs in plan for _, n in reqs)
+        log(f"  /reconstruct under load, {SERVE_THREADS} threads x {SERVE_REQUESTS} requests of 1-4 rolls (npy): "
+            f"all {served_n} correct, {batches} device batches ({served_n / batches:.2f} requests per batch), "
+            f"latency p50 {quantile_ms(latencies, 50):.3f} ms, p99 {quantile_ms(latencies, 99):.3f} ms, "
+            f"{rolls / wall:.1f} rolls/s over {wall:.3f} s [{card}]")
+    finally:
+        for h in servers.values():
+            h.shutdown()
+            h.server_close()
+            h.service.close()
+
+    counts = ops.launch_counts()
+    check(counts == {k: 0 for k in ops.KERNEL_WRAPPERS}, f"the inference path launched a fused-ELBO kernel: {counts}")
+    log(f"  launches across the serve phase (generate, evaluate, serve): {counts}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 # ==================================================================== main
 
 
@@ -720,6 +967,8 @@ def main() -> int:
     reconstruct_phase(model, dev)
     log("train CLI (configs/folded.yaml):")
     cli_counts = cli_phase(dev, root, card)
+    log("inference (generate, evaluate, serve) on the fused run's best_model.pt:")
+    serve_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():

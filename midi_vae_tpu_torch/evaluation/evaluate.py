@@ -16,7 +16,8 @@ package's:
 
 The forward samples z as in training (the reference samples in eval
 too); batch ``i`` of a sweep draws with ``derive_step_seed(seed, i)``, or
-takes an injected ``eps``.
+takes an injected ``eps``. With ``collect_latents`` the sweep also returns
+each real sample's z (``latents`` [N, D], copied to the host per batch).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ _MIN = ("stim_min", "recon_min")
 _MAX = ("stim_max", "recon_max")
 
 
-def make_eval_step(model, target_denorm=None, occupancy_denorm=None) -> Callable:
+def make_eval_step(model, collect_latents: bool = False, target_denorm=None, occupancy_denorm=None) -> Callable:
     """Build ``eval_step(x, mask, seed, *, params=None, eps=None) → dict of
     device tensors``.
 
@@ -45,7 +46,9 @@ def make_eval_step(model, target_denorm=None, occupancy_denorm=None) -> Callable
     tensor, e.g. the EMA averages; BatchNorm statistics stay the model's).
     ``eps`` replaces the reparameterization draw. ``target_denorm`` adds
     ``bce_raw_sum``; ``occupancy_denorm`` (the eval transform's mean and
-    std) adds the occupancy counts.
+    std) adds the occupancy counts. ``collect_latents`` adds ``latents``,
+    the batch's z [B, D]; the step carries its options as attributes, so
+    :func:`evaluate` can tell what a step passed to it provides.
     """
 
     @torch.no_grad()
@@ -86,8 +89,13 @@ def make_eval_step(model, target_denorm=None, occupancy_denorm=None) -> Callable
             "mu_sum": torch.sum(mu * mv, dim=0),
             "mu_sq_sum": torch.sum(torch.square(mu) * mv, dim=0),
         }
+        if collect_latents:
+            res["latents"] = out.latents
         return res
 
+    eval_step.collect_latents = collect_latents
+    eval_step.target_denorm = target_denorm
+    eval_step.occupancy_denorm = occupancy_denorm
     return eval_step
 
 
@@ -99,15 +107,29 @@ def evaluate(
     partition_name: str = "Val",
     seed: int = 0,
     verbosity: int = 1,
+    collect_latents: bool = False,
     eval_step: Optional[Callable] = None,
 ) -> Dict[str, float]:
     """Full-dataset metric sweep over ``loader.epoch(1)``; ``params``
     replaces the model's parameters (the EMA averages). Returns the metrics
-    named in the module docstring and ``count``."""
-    step_fn = eval_step if eval_step is not None else make_eval_step(model)
+    named in the module docstring and ``count``, and with
+    ``collect_latents`` ``latents`` (a passed ``eval_step`` that does not
+    collect them is rebuilt with its target options)."""
+    if collect_latents and not getattr(eval_step, "collect_latents", False):
+        step_fn = make_eval_step(
+            model, collect_latents=True,
+            target_denorm=getattr(eval_step, "target_denorm", None),
+            occupancy_denorm=getattr(eval_step, "occupancy_denorm", None),
+        )
+    else:
+        step_fn = eval_step if eval_step is not None else make_eval_step(model)
     acc = None
+    latents = []
     for i, batch in enumerate(loader.epoch(1)):
         res = step_fn(batch.x, batch.mask, derive_step_seed(seed, i), params=params)
+        z = res.pop("latents", None)
+        if collect_latents:
+            latents.append(z[batch.mask > 0].float().cpu().numpy())
         if acc is None:
             acc = dict(res)
             continue
@@ -145,10 +167,14 @@ def evaluate(
         results["precision"] = 100.0 * precision
         results["recall"] = 100.0 * recall
         results["f1"] = 100.0 * 2.0 * precision * recall / (precision + recall) if precision + recall else 0.0
+    if collect_latents:
+        results["latents"] = np.concatenate(latents)
 
     if verbosity >= 1:
         print(f"\n{partition_name} evaluation results:")
         for k, v in results.items():
+            if k == "latents":
+                continue
             if "count" in k or "units" in k:
                 print(f"  {k + ' ':.<21s}{v:7d}")
             elif "entropy" in k or k in ("kl", "bce-objective"):

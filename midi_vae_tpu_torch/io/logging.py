@@ -4,7 +4,8 @@ The same metric namespaces (``training/stepwise/*``,
 ``training/epochwise/*``, ``eval/{test,val,train}/*``) go to a
 ``metrics.jsonl`` file in the run directory and, when asked for, to
 wandb (which must then be importable). ``PhaseTimer`` splits a step
-loop's host time into named phases.
+loop's host time into named phases. :func:`write_png` writes image grids
+(reconstructions, generated samples) without an imaging library.
 """
 
 from __future__ import annotations
@@ -13,8 +14,12 @@ import json
 import os
 import secrets
 import string
+import struct
 import time
+import zlib
 from typing import Any, Dict, Optional
+
+import numpy as np
 
 
 def generate_id(length: int = 8) -> str:
@@ -136,3 +141,23 @@ def print_epoch_summary(kind: str, epoch: int, n_epoch: int, stats: Dict[str, An
         print(f"  Loss ...............{stats['loss']:14.5f}")
     if "cross-entropy" in stats:
         print(f"  Cross-entropy ......{stats['cross-entropy']:14.5f}")
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """An 8-bit grayscale ([H, W] or [H, W, 1]) or RGB ([H, W, 3]) PNG, with zlib."""
+    if image.ndim == 3 and image.shape[-1] == 1:
+        image = image[..., 0]
+    h, w = image.shape[:2]
+    color = 0 if image.ndim == 2 else 2
+    raw = b"".join(b"\x00" + np.ascontiguousarray(image[r]).tobytes() for r in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(
+            b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b"")
+        )

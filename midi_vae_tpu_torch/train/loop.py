@@ -14,12 +14,11 @@ their ROADMAP item (:func:`check_ported`), before any work is done.
 
 from __future__ import annotations
 
+import copy
 import os
-import struct
 import sys
 import time
 import traceback
-import zlib
 from datetime import datetime
 from typing import Optional
 
@@ -33,7 +32,10 @@ from midi_vae_tpu_torch.data.pipeline import make_loader
 from midi_vae_tpu_torch.data.registry import image_dataset_sizes
 from midi_vae_tpu_torch.data.stats import estimate_base_rate, resolve_auto
 from midi_vae_tpu_torch.data.transforms import VALID_TRANSFORMS, denormalize, get_transform
+from midi_vae_tpu_torch.evaluation.disentanglement import mig_from_loader
 from midi_vae_tpu_torch.evaluation.evaluate import evaluate, make_eval_step
+from midi_vae_tpu_torch.evaluation.inference import reconstruction_grid
+from midi_vae_tpu_torch.evaluation.iwae import iwae_bound
 from midi_vae_tpu_torch.io.checkpoint import (
     CHECKPOINT_LATEST,
     AsyncCheckpointWriter,
@@ -42,7 +44,7 @@ from midi_vae_tpu_torch.io.checkpoint import (
     restore_config,
     save_checkpoint,
 )
-from midi_vae_tpu_torch.io.logging import MetricLogger, PhaseTimer, generate_id, print_epoch_summary
+from midi_vae_tpu_torch.io.logging import MetricLogger, PhaseTimer, generate_id, print_epoch_summary, write_png
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.registry import build_model
 from midi_vae_tpu_torch.models.vae import param_group_label
@@ -65,8 +67,6 @@ def check_ported(config: TrainConfig) -> None:
     gaps = [
         (config.arch.lower() in _VQ_ARCHS or config.loss_type == "vq", "VQ models and the VQ objective", 12),
         (config.loss_type == "beta-tc", "the beta-TC objective", 17),
-        (config.final_iwae, "--final-iwae", 11),
-        (config.final_mig, "--final-mig", 11),
         (config.grad_accum != 1, "--grad-accum > 1", 7),
         (config.scan_steps != 1, "--scan-steps > 1 (scan-chunked epochs)", 9),
         (config.checkpoint_backend == "orbax", "--checkpoint-backend orbax", 10),
@@ -428,6 +428,24 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     print(f"\nEvaluating final model (epoch {last_epoch}) performance")
     print("\nEvaluating final model on test set...")
     test_stats = run_eval(loader_test, "Test")
+    if config.final_iwae or config.final_mig:
+        # the weights evaluation uses: the EMA averages when tracking is on
+        eval_model = model
+        if config.ema_decay is not None:
+            eval_model = copy.deepcopy(model)
+            eval_model.load_state_dict(state.ema_params, strict=False)
+        if config.final_iwae:
+            # held-out density estimate (nats/sample), against the de-normalised
+            # [0, 1] pixels whatever --bce-targets mode trained the run
+            test_stats[f"iwae-{config.final_iwae}"] = iwae_bound(
+                loader_test, eval_model, k=config.final_iwae, seed=seed,
+                target_denorm=(tuple(transform_eval.mean), tuple(transform_eval.std)),
+            )
+            print(f"  {f'iwae-{config.final_iwae} ':.<24s} {test_stats[f'iwae-{config.final_iwae}']:9.5f} nat/sample")
+        if config.final_mig:
+            # disentanglement of the test posterior means against the dataset labels
+            test_stats["mig"] = mig_from_loader(loader_test, eval_model, bins=config.final_mig)["mig"]
+            print(f"  {'mig ':.<24s} {test_stats['mig']:9.5f}")
     logger.log({f"eval/test/{k}": v for k, v in test_stats.items()}, step=total_step)
     results["final_test"] = test_stats
     if distinct_val_test:
@@ -610,11 +628,7 @@ def _log_reconstruction_grid(logger, model, x, step: int, spec=None) -> None:
     wandb when it is on, else a PNG next to the checkpoint."""
     recon = model(x[:8], train=False, seed=0).output.float()
     inputs = denormalize(spec, x[:8]) if spec is not None else x[:8]
-    paired = torch.cat([inputs, recon], dim=2)  # [n, H, 2W, C]
-    rows = [torch.cat(list(paired[i : i + 4]), dim=1) for i in range(0, paired.shape[0], 4)]
-    width = max(r.shape[1] for r in rows)
-    rows = [torch.nn.functional.pad(r, (0, 0, 0, width - r.shape[1])) for r in rows]
-    grid = torch.cat(rows, dim=0).cpu().numpy()
+    grid = reconstruction_grid(inputs, recon).cpu().numpy()
     if logger.wandb_run is not None:
         import wandb
 
@@ -623,22 +637,3 @@ def _log_reconstruction_grid(logger, model, x, step: int, spec=None) -> None:
         arr = (np.clip(grid, 0.0, 1.0) * 255).astype(np.uint8)
         write_png(os.path.join(logger.output_dir, f"reconstruction_step{step:06d}.png"), arr)
 
-
-def write_png(path: str, image: np.ndarray) -> None:
-    """An 8-bit grayscale ([H, W] or [H, W, 1]) or RGB ([H, W, 3]) PNG, with zlib."""
-    if image.ndim == 3 and image.shape[-1] == 1:
-        image = image[..., 0]
-    h, w = image.shape[:2]
-    color = 0 if image.ndim == 2 else 2
-    raw = b"".join(b"\x00" + np.ascontiguousarray(image[r]).tobytes() for r in range(h))
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
-
-    with open(path, "wb") as f:
-        f.write(
-            b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw))
-            + chunk(b"IEND", b"")
-        )

@@ -319,7 +319,8 @@ def test_cli_runs_on_the_gpu_unless_asked_for_the_cpu():
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(arch="VQVAE"), 12), (dict(loss_type="beta-tc"), 17), (dict(final_iwae=4), 11), (dict(final_mig=10), 11),
+        (dict(arch="VQVAE"), 12), (dict(loss_type="beta-tc"), 17), (dict(loss_type="vq"), 12),
+        (dict(pretrained="checkpoint_latest.msgpack"), 10),
         (dict(grad_accum=2), 7), (dict(scan_steps=8), 9), (dict(checkpoint_backend="orbax"), 10),
         (dict(num_devices=2), 16), (dict(mesh_slices=2), 16), (dict(step_impl="shard_map"), 16),
         (dict(conditional=True), 17), (dict(stem="s2d"), 17), (dict(norm="group"), 17), (dict(remat=True), 17),
