@@ -59,7 +59,23 @@ From the repository root. It
    latencies (first request per bucket, sequential single-roll p50/p99
    and its parts, /sample, under load); no fused-ELBO kernel may launch in
    any of it;
-9. prints one ``{"kernels": [...]}`` line, the card line again, and as the
+9. drives the two-stage VQ path of ``configs/vq16_fold8.yaml`` on the same
+   ``midi-synthetic`` corpus: the train CLI on the FoldedVQVAE at full width
+   for 2 of its 60 epochs (loss falls, codebook perplexity and active codes
+   above 1, checkpoints written), the VQ step alone at batch 100 (its
+   device busy share and the quantizer's share of device time), the model
+   on the card against the CPU (decode within 1e-4, code indices equal but
+   at near-ties), the prior trainer on the config's transformer for 2 of
+   its 40 epochs with 2 of its 10 augment passes (NLL falls, held-out NLL
+   below log K), its resume to epoch 3 and one epoch of the PixelCNN;
+   ``generate --prior`` in sample mode (top_p 1.0 and 0.9) and continue
+   mode with ``.mid`` export, the forced codes checked at the sampler;
+   ``evaluate --codes-out``; both priors' ancestral samplers timed (ms per
+   position, launches per position); the prior's train step at batch 256;
+   and ``serve`` on the card with ``--prior``: /sample against the direct
+   sampler and decoder, /continue, /healthz, latencies. The fused-ELBO
+   kernels launch 0 times in all of it (the VQ objective refuses them);
+10. prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
@@ -103,6 +119,12 @@ OPTIMIZER = dict(optimizer="AdamW", lr=1e-3, scheduler="OneCycle", total_steps=1
 TIMING_LAUNCHES = 25
 SERVE_THREADS, SERVE_REQUESTS = 16, 8  # concurrent clients, requests each
 SEQUENTIAL_REQUESTS = 100
+VQ_CONFIG = "configs/vq16_fold8.yaml"
+VQ_EPOCHS = 2  # of the config's 60
+PRIOR_EPOCHS = 2  # of the prior section's 40, then a resume to one more
+AUGMENT_PASSES = 2  # of the prior section's 10
+SAMPLE_N = 16  # grids per sampler call and per /sample request
+PRIOR_REQUESTS = 10  # timed /sample and /continue requests each
 
 # H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -933,6 +955,312 @@ def serve_phase(dev, root: Path, card: str) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ====================================================================== vq
+
+
+def vq_train(root: Path, models: Path, card: str):
+    """Stage 1: the train CLI on the VQ config as written, for 2 of its 60
+    epochs. Returns the run's results and its best checkpoint."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+
+    r = train_cli.cli(["--config", str(root / VQ_CONFIG), "--stop-after-epochs", str(VQ_EPOCHS), "--seed", "0",
+                       "--models-dir", str(models), "--run-name", "vq16", "--run-id", "stage1"])
+    log_cli_run(f"{VQ_CONFIG} as written (FoldedVQVAE, bf16), epochs 1-{VQ_EPOCHS} of 60", r, card)
+    losses = [h["train"]["loss"] for h in r["history"]]
+    check(len(losses) == VQ_EPOCHS and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"VQ train loss did not fall: {losses}")
+    final = r["final_test"]
+    check(final["codebook-perplexity"] > 1 and final["active-codes"] > 1, f"codebook collapsed: {final}")
+    run_dir = models / "midi-synthetic" / "vq16__stage1"
+    latest, best = run_dir / "checkpoint_latest.pt", run_dir / "best_model.pt"
+    check(latest.is_file() and best.is_file(), f"VQ checkpoints missing under {run_dir}")
+    log(f"  epoch losses {losses}; final test: bce-objective {final['bce-objective']:.6f}, f1 {final['f1']:.3f} %, "
+        f"codebook perplexity {final['codebook-perplexity']:.2f}, active codes {final['active-codes']} of "
+        f"{r['state'].model.codebook_size}; {latest.name} and {best.name} written")
+    return r, best
+
+
+def vq_step_timing(r: dict, dev, card: str) -> None:
+    """The VQ train step alone at the CLI's batch: the median of 20 steps
+    closed by reading the loss, the device's busy share of it, and the
+    quantizer's share of the step's device time (distances, argmin, EMA
+    update: the quantizer's train-mode call on the step's z_e, alone)."""
+    from midi_vae_tpu_torch.data.transforms import get_transform
+
+    spec, _ = get_transform("pianoroll", 128, {"normalization": "midi-synthetic"})
+    step = make_train_step(kl_weight_schedule("constant", 0.25), loss_type="vq",
+                           target_denorm=(tuple(spec.mean), tuple(spec.std)))
+    state = [r["state"]]
+    data_gen = torch.Generator(device=dev).manual_seed(6)
+    step_ms = []
+    for _ in range(20):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        x, _ = make_pianoroll_batch(data_gen, CLI_BATCH, device=dev)
+        state[0], lo, _ = step(state[0], x, 0)
+        lo.loss.item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(step_ms)
+
+    def one_step():
+        state[0], _, _ = step(state[0], x, 0)
+
+    step_dev, step_kernels = device_ms_per_call(one_step, dev, n=5)
+    model = state[0].model
+    with torch.no_grad():
+        z_e = model._encode_spatial(x, False)[0]
+    quantizer = copy.deepcopy(model.quantizer)
+    q_dev, q_kernels = device_ms_per_call(lambda: quantizer(z_e, True), dev)
+    log(f"  VQ step alone at batch {CLI_BATCH} (bf16): median {med:.3f} ms, min {min(step_ms):.3f} ms over 20 steps "
+        f"({CLI_BATCH / med * 1e3:.1f} samples/s); device busy {step_dev:.3f} ms/step ({step_dev / med:.1%}, "
+        f"{step_kernels:.0f} kernels and copies) [{card}]")
+    log(f"  quantizer (distances in f64→f32, argmin, EMA update) on z_e {list(z_e.shape)}: device {q_dev:.4f} ms per "
+        f"call ({q_kernels:.0f} kernels), {q_dev / step_dev:.1%} of the step's device time [{card}]")
+
+
+def vq_card_vs_cpu(best: Path, dev, card: str) -> None:
+    """The VQ model on the card against the same weights on the CPU, f32,
+    batch 16: decode_indices of the same grids within 1e-4; encode_indices
+    equal on at least 99.9 % of positions, every difference a near-tie (the
+    two codes' distances on the CPU within 1e-4 relative)."""
+    from midi_vae_tpu_torch.cli.generate import _fetch_eval_batch, _load_model_and_state
+
+    gpu, cfg, size, _, dataset = _load_model_and_state(str(best), device=dev)
+    cpu, _, _, _, _ = _load_model_and_state(str(best), device="cpu")
+    x, _, _ = _fetch_eval_batch(dataset, None, size, 16, cfg, dev)
+    s, k = cpu.last_conv_size, cpu.codebook_size
+    grids = torch.randint(0, k, (16, s, s), generator=torch.Generator().manual_seed(7))
+    with torch.inference_mode():
+        dec_err = float((gpu.decode_indices(grids.to(dev)).cpu() - cpu.decode_indices(grids)).abs().max())
+        idx_g = gpu.encode_indices(x).cpu().reshape(-1).long()
+        idx_c = cpu.encode_indices(x.cpu()).reshape(-1).long()
+        d2 = cpu.quantizer.distances(cpu.encode(x.cpu()).mu.reshape(-1, cpu.latent_dim))
+    differ = torch.nonzero(idx_g != idx_c).flatten()
+    a, b = d2[differ, idx_g[differ]], d2[differ, idx_c[differ]]
+    near_ties = bool(((a - b).abs() <= 1e-4 * torch.maximum(a.abs(), b.abs())).all())
+    agree = 1.0 - len(differ) / idx_g.numel()
+    log(f"  card vs CPU, f32 batch 16: decode_indices max |err| {dec_err:.3e}; encode_indices equal on "
+        f"{agree:.4%} of {idx_g.numel()} positions, {len(differ)} differ (all near-ties: {near_ties}) [{card}]")
+    check(dec_err <= 1e-4, "decode_indices on the card disagrees with the CPU")
+    check(agree >= 0.999 and near_ties, "encode_indices on the card disagrees with the CPU")
+
+
+def vq_prior_train(root: Path, best: Path, card: str):
+    """Stage 2: the prior trainer on the config's prior section (transformer)
+    for 2 of its 40 epochs with 2 of its 10 augment passes, its resume to
+    epoch 3, and one epoch of the PixelCNN at its default widths. Returns
+    both priors' paths."""
+    from midi_vae_tpu_torch.cli import train_prior
+
+    def report(label, p):
+        for h in p["history"]:
+            log(f"    {label} epoch {h['epoch']}: nll {h['nll']:.4f} nats/position, {h['steps']} steps of "
+                f"{p['batch_size']} in {h['duration']:.3f} s ({h['steps'] * p['batch_size'] / h['duration']:.1f} "
+                f"grids/s) [{card}]")
+
+    argv = ["--config", str(root / VQ_CONFIG), "--checkpoint", str(best), "--augment-passes", str(AUGMENT_PASSES)]
+    p1 = train_prior.cli(argv + ["--epochs", str(PRIOR_EPOCHS)])
+    report("transformer", p1)
+    _, pcfg = train_prior.load_prior(p1["out"], device="cpu")
+    uniform = math.log(pcfg["num_codes"])
+    nlls = [h["nll"] for h in p1["history"]]
+    check(len(nlls) == PRIOR_EPOCHS and all(math.isfinite(v) for v in nlls) and nlls[-1] < nlls[0],
+          f"prior NLL did not fall: {nlls}")
+    check(p1["test_nll"] < uniform, f"held-out NLL {p1['test_nll']} not below log K = {uniform}")
+    log(f"  transformer prior ({pcfg['features']} features, {pcfg['layers']} layers, {pcfg['heads']} heads): corpus "
+        f"{p1['corpus']} grids (clean + {AUGMENT_PASSES} augment passes, encoded in "
+        f"{sum(p1['timings'].values()):.3f} s), held-out NLL {p1['test_nll']:.4f} < log K {uniform:.4f} nats/position")
+    p2 = train_prior.cli(argv + ["--epochs", str(PRIOR_EPOCHS + 1)])  # resumes from prior_latest.pt
+    report("transformer, resumed", p2)
+    check([h["epoch"] for h in p2["history"]] == [PRIOR_EPOCHS + 1]
+          and p2["total_step"] == p1["total_step"] + p2["history"][0]["steps"],
+          f"prior resume: {p2['history']}, total_step {p1['total_step']} -> {p2['total_step']}")
+    pix = train_prior.cli(["--checkpoint", str(best), "--prior-arch", "pixelcnn", "--epochs", "1",
+                           "--out", str(best.parent / "prior_pixelcnn.pt")])
+    report("PixelCNN", pix)
+    check(math.isfinite(pix["history"][0]["nll"]) and math.isfinite(pix["test_nll"]), "PixelCNN prior not finite")
+    log(f"  resumed to epoch {PRIOR_EPOCHS + 1}: total_step {p1['total_step']} -> {p2['total_step']}, held-out NLL "
+        f"{p2['test_nll']:.4f}; PixelCNN 1 epoch: held-out NLL {pix['test_nll']:.4f} nats/position")
+    return Path(p2["out"]), Path(pix["out"])
+
+
+def vq_generate_evaluate(best: Path, prior_path: Path, out: Path, dev, card: str):
+    """generate --prior (sample at top_p 1.0 and 0.9, continue keeping 8
+    time columns) with .mid export; the forced codes checked at the
+    sampler; evaluate --codes-out read back. Returns the model, the prior
+    and a batch of 16 test rolls, on the card."""
+    import numpy as np
+
+    from midi_vae_tpu_torch.cli import evaluate as evaluate_cli
+    from midi_vae_tpu_torch.cli import generate as generate_cli
+    from midi_vae_tpu_torch.cli.generate import _fetch_eval_batch, _load_model_and_state
+    from midi_vae_tpu_torch.cli.train_prior import load_prior
+    from midi_vae_tpu_torch.midi.smf import read_smf
+    from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
+
+    runs = {
+        "sample": (["--mode", "sample"], SAMPLE_N),
+        "sample_top_p": (["--mode", "sample", "--top-p", "0.9"], SAMPLE_N),
+        "continue": (["--mode", "continue", "--keep-cols", "8"], 2 * SAMPLE_N),  # input | continuation pairs
+    }
+    for name, (extra, n) in runs.items():
+        png, mid = out / f"{name}.png", out / f"mid_{name}"
+        t0 = time.perf_counter()
+        images = generate_cli.cli(["--checkpoint", str(best), "--prior", str(prior_path), "-n", str(SAMPLE_N),
+                                   "--out", str(png), "--export-midi", str(mid)] + extra)
+        seconds = time.perf_counter() - t0
+        check(images.shape == (n, 128, 128, 1) and bool(np.isfinite(images).all())
+              and images.min() >= 0.0 and images.max() <= 1.0, f"generate --prior {name}: {images.shape}")
+        files = sorted(mid.glob("*.mid"))
+        notes = [read_smf(str(f)) for f in files]
+        check(png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n" and len(files) == n, f"generate --prior {name}: outputs")
+        log(f"  generate --prior {' '.join(extra)}: {list(images.shape)}, {n} .mid files "
+            f"({sum(len(k) for k in notes)} notes) read back; {seconds:.3f} s [{card}]")
+
+    model, cfg, size, _, dataset = _load_model_and_state(str(best), device=dev)
+    prior, _ = load_prior(str(prior_path), device=dev)
+    x, _, _ = _fetch_eval_batch(dataset, None, size, SAMPLE_N, cfg, dev)
+    s = model.last_conv_size
+    with torch.inference_mode():
+        codes = model.encode_indices(x)
+    mask = np.zeros((s, s), bool)
+    mask[:, :8] = True
+    idx = sample_codes_autoregressive(prior, 1, SAMPLE_N, s, known=codes, known_mask=mask)
+    check(torch.equal(idx[:, :, :8], codes[:, :, :8]), "forced positions differ from the encoded codes")
+    check(int(idx.min()) >= 0 and int(idx.max()) < model.codebook_size, "codes outside [0, K)")
+
+    npz = out / "codes.npz"
+    res = evaluate_cli.cli(["--checkpoint", str(best), "--partition", "test", "--codes-out", str(npz)])["test"]
+    grids = np.load(npz)["codes_test"]
+    check(grids.shape == (res["count"], s, s) and grids.dtype == np.int32 and grids.min() >= 0
+          and grids.max() < model.codebook_size, f"--codes-out: {grids.shape} {grids.dtype}")
+    log(f"  sampler: forced time columns equal the encoded codes, codes in [0, {model.codebook_size}); evaluate "
+        f"--codes-out: {list(grids.shape)} int32 grids read back, {len(np.unique(grids))} distinct codes; test "
+        f"bce-objective {res['bce-objective']:.6f}")
+    return model, prior, x
+
+
+def sampler_timing(prior, grid: int, label: str, dev, card: str) -> None:
+    """One ancestral sampler call of SAMPLE_N grids: host ms per call (the
+    median of 3, closed by a synchronize) and per position; kernels and the
+    device's busy time per call from a profile of one call."""
+    from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
+
+    def call():
+        sample_codes_autoregressive(prior, 0, SAMPLE_N, grid)
+        torch.cuda.synchronize(dev)
+
+    call()
+    ms = statistics.median(timed(call, 3)) * 1e3
+    dev_ms, kernels = device_ms_per_call(call, dev, n=1)
+    positions = grid * grid
+    log(f"  {label} ancestral sampler, {SAMPLE_N} grids of {grid}x{grid}: {ms:.3f} ms per call, "
+        f"{ms / positions:.4f} ms per position, {kernels / positions:.1f} kernels and copies per position; device "
+        f"busy {dev_ms:.3f} ms per call ({dev_ms / ms:.1%}) [{card}]")
+
+
+def prior_step_timing(prior_path: Path, dev, card: str) -> None:
+    """The prior's train step (forward, NLL, backward, Adam) at the config's
+    batch of 256 grids: median of 10 steps closed by reading the loss, and
+    its device time."""
+    from midi_vae_tpu_torch.cli.train_prior import load_prior
+    from midi_vae_tpu_torch.models.prior import prior_nll
+
+    prior, pcfg = load_prior(str(prior_path), device=dev)
+    opt = torch.optim.Adam(prior.parameters(), lr=3e-4)
+    s = int(pcfg["grid"])
+    idx = torch.randint(0, int(pcfg["num_codes"]), (256, s, s), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(8))
+
+    def one():
+        opt.zero_grad(set_to_none=True)
+        nll = prior_nll(prior, idx)
+        nll.backward()
+        opt.step()
+        return nll
+
+    for _ in range(3):
+        one()
+    ms = []
+    for _ in range(10):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        one().item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, kernels = device_ms_per_call(one, dev, n=3)
+    med = statistics.median(ms)
+    log(f"  {pcfg['arch']} prior train step at batch 256 (f32, TF32 off): median {med:.3f} ms, min {min(ms):.3f} ms "
+        f"over 10 steps ({256 / med * 1e3:.1f} grids/s); device {dev_ms:.3f} ms ({dev_ms / med:.1%}, {kernels:.0f} "
+        f"kernels and copies) [{card}]")
+
+
+def vq_serve(best: Path, prior_path: Path, model, prior, x, dev, card: str) -> None:
+    """serve on the card with --prior: /healthz names the prior; /sample
+    equals the direct sampler and decoder for the same seed; /continue
+    answers; both timed over PRIOR_REQUESTS requests."""
+    import numpy as np
+
+    from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
+    from midi_vae_tpu_torch.serving.client import ServingClient
+    from midi_vae_tpu_torch.serving.server import serve
+
+    httpd = serve(str(best), port=0, prior=str(prior_path))
+    try:
+        client = ServingClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+        health = client.healthz()
+        check(health["prior"] is not None and health["prior"]["arch"] == "transformer", f"/healthz: {health}")
+        got = client.sample(SAMPLE_N, 3, temperature=0.9, top_p=0.95)
+        with torch.inference_mode():
+            idx = sample_codes_autoregressive(prior, 3, SAMPLE_N, model.last_conv_size, temperature=0.9, top_p=0.95)
+            want = model.decode_indices(idx).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        check(got.shape == want.shape and err <= 1e-4, f"/sample vs the direct sampler: max |err| {err}")
+        rolls = x.cpu().numpy()
+        cont = client.continue_(rolls, keep_cols=8, seed=4)
+        check(cont.shape == rolls.shape and bool(np.isfinite(cont).all()), f"/continue: {cont.shape}")
+        log(f"  serve --prior on the card: /healthz prior {health['prior']['arch']}; /sample n={SAMPLE_N} "
+            f"(temperature 0.9, top_p 0.95) vs the direct sampler + decode_indices, same seed: max |err| {err:.3e}; "
+            f"/continue of {len(rolls)} rolls answered")
+        sample_s = timed(lambda: client.sample(SAMPLE_N, 0, temperature=0.9, top_p=0.95), PRIOR_REQUESTS)
+        cont_s = timed(lambda: client.continue_(rolls[:1], keep_cols=8), PRIOR_REQUESTS)
+        log(f"  /sample with prior, n={SAMPLE_N}, npy ({PRIOR_REQUESTS} sequential): p50 {quantile_ms(sample_s, 50):.3f} "
+            f"ms, p99 {quantile_ms(sample_s, 99):.3f} ms; /continue 1 roll, keep 8 of {model.last_conv_size} columns: "
+            f"p50 {quantile_ms(cont_s, 50):.3f} ms, p99 {quantile_ms(cont_s, 99):.3f} ms [{card}]")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.service.close()
+
+
+def vq_phase(dev, root: Path, card: str) -> dict:
+    """The two-stage VQ path (module docstring, item 9). Returns the fused-ELBO
+    kernels' launches across it, which must all be 0."""
+    from midi_vae_tpu_torch.cli.train_prior import load_prior
+
+    t_phase = time.perf_counter()
+    models, out = root / "build" / "vq_models", root / "build" / "vq"
+    for d in (models, out):
+        shutil.rmtree(d, ignore_errors=True)
+    out.mkdir(parents=True)
+    ops.reset_launch_counts()
+
+    r, best = vq_train(root, models, card)
+    vq_step_timing(r, dev, card)
+    vq_card_vs_cpu(best, dev, card)
+    prior_path, pixelcnn_path = vq_prior_train(root, best, card)
+    model, prior, x = vq_generate_evaluate(best, prior_path, out, dev, card)
+    grid = model.last_conv_size
+    sampler_timing(prior, grid, "transformer", dev, card)
+    sampler_timing(load_prior(str(pixelcnn_path), device=dev)[0], grid, "PixelCNN", dev, card)
+    prior_step_timing(prior_path, dev, card)
+    vq_serve(best, prior_path, model, prior, x, dev, card)
+
+    counts = ops.launch_counts()
+    check(counts == {k: 0 for k in ops.KERNEL_WRAPPERS}, f"the VQ path launched a fused-ELBO kernel: {counts}")
+    log(f"  launches across the VQ phase: {counts}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # ==================================================================== main
 
 
@@ -969,6 +1297,8 @@ def main() -> int:
     cli_counts = cli_phase(dev, root, card)
     log("inference (generate, evaluate, serve) on the fused run's best_model.pt:")
     serve_phase(dev, root, card)
+    log(f"two-stage VQ path ({VQ_CONFIG}):")
+    vq_counts = vq_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -982,6 +1312,7 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": counts[key],
                 "cli_launches": cli_counts[key],
+                "vq_launches": vq_counts[key],
                 "max_abs_err": errs[key],
                 "ms": ms,
                 "device_ms": device_ms[key],

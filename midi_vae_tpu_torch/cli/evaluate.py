@@ -12,8 +12,10 @@ The metrics are the train loop's sweep (``evaluation/evaluate.py``), plus
 the IWAE bound (``--iwae-samples``) and MIG (``--mig``) when asked for.
 EMA-trained checkpoints evaluate with the averaged weights unless
 ``--no-ema``. Runs on the GPU and fails without one; ``--cpu`` runs on the
-CPU. ``--codes-out`` (VQ code grids) raises ``NotImplementedError``
-(ROADMAP item 12).
+CPU. ``--codes-out`` writes a VQ checkpoint's code grids per partition
+(``codes_<partition>`` int32 [N, s, s], ``labels_<partition>``) with
+``np.savez`` under the JAX package's keys, through the prior trainer's
+``encode_corpus``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--latents-out", type=str, default=None,
                         help="Also collect per-sample posterior latents and write them to this .npz")
     parser.add_argument("--codes-out", type=str, default=None,
-                        help="VQ checkpoints: write code grids (not ported yet, ROADMAP item 12)")
+                        help="VQ-VAE checkpoints: write each partition's discrete code grids (and labels) "
+                             "to this .npz, the tokenized corpus a code prior trains on")
     parser.add_argument("--json", dest="json_out", type=str, default=None,
                         help="Write the results dict as JSON to this path")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the GPU")
@@ -66,10 +69,6 @@ def _stored_split_rate(raw: Any):
 def cli(argv=None) -> dict:
     """Command-line interface; returns the results, partition → metrics."""
     args = get_parser().parse_args(argv)
-    if args.codes_out:
-        raise NotImplementedError(
-            "--codes-out (VQ code grids) is not ported to the PyTorch package yet (ROADMAP Queue 1 item 12)"
-        )
 
     from midi_vae_tpu_torch.cli.generate import _load_model_and_state
     from midi_vae_tpu_torch.core.device import resolve_device
@@ -115,8 +114,15 @@ def cli(argv=None) -> dict:
         occupancy_denorm=eval_denorm,
     )
 
+    if args.codes_out and getattr(model, "latent_kind", "gaussian") != "vq":
+        raise SystemExit(
+            "--codes-out exports discrete codebook-index grids; this checkpoint is a "
+            f"{type(model).__name__} (Gaussian latent — use --latents-out instead)"
+        )
+
     results = {}
     collected = {}
+    codes = {}
     for name, ds in partitions:
         loader = make_loader(ds, min(args.batch_size, len(ds)), train=False, device=dev)
         out = evaluate(
@@ -125,6 +131,10 @@ def cli(argv=None) -> dict:
         )
         if args.latents_out:
             collected[name] = out.pop("latents")
+        if args.codes_out:
+            from midi_vae_tpu_torch.cli.train_prior import encode_corpus
+
+            codes[f"codes_{name}"], codes[f"labels_{name}"] = encode_corpus(model, loader, with_labels=True)
         if args.mig:
             mig = mig_from_loader(loader, model, bins=args.mig_bins)
             out["mig"] = mig["mig"]
@@ -146,6 +156,11 @@ def cli(argv=None) -> dict:
 
         np.savez(args.latents_out, **{f"latents_{k}": v for k, v in collected.items()})
         print(f"wrote latents for {list(collected)} to {args.latents_out}")
+    if args.codes_out:
+        import numpy as np
+
+        np.savez(args.codes_out, **codes)
+        print(f"wrote code grids to {args.codes_out}: { {k: v.shape for k, v in codes.items()} }")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(results, f, indent=1)

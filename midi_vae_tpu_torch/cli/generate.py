@@ -1,5 +1,6 @@
 """Generation CLI: prior samples, reconstructions, latent interpolations and
-traversals from a trained checkpoint (counterpart of
+traversals from a trained checkpoint, and for VQ-VAE checkpoints samples
+and continuations drawn through a trained code prior (counterpart of
 ``midi_vae_tpu/cli/generate.py``).
 
 Usage::
@@ -8,16 +9,20 @@ Usage::
     python -m midi_vae_tpu_torch.cli.generate --checkpoint CKPT --mode reconstruct
     python -m midi_vae_tpu_torch.cli.generate --checkpoint CKPT --mode interpolate --steps 8 --slerp
     python -m midi_vae_tpu_torch.cli.generate --checkpoint CKPT --mode sample --export-midi out_dir/
+    python -m midi_vae_tpu_torch.cli.generate --checkpoint VQ_CKPT --prior PRIOR [--top-p 0.9] --mode sample
+    python -m midi_vae_tpu_torch.cli.generate --checkpoint VQ_CKPT --prior PRIOR --mode continue --keep-cols 8
 
 The model runs on the GPU (``cuda``) and the CLI fails without one;
 ``--cpu`` runs it on the CPU. Checkpoints are the port's own ``.pt``
 files (``io/checkpoint.py``). The model is built from the checkpoint's
 config as the JAX package builds it for inference: in f32 whatever
 ``dtype`` trained it, and without the fused reparameterization, so no
-kernel of ``ops/fused_elbo.py`` runs here. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: ``--prior``, ``--mode
-continue`` and ``--keep-cols`` (item 13, VQ two-stage generation) and
-``--label`` (item 17, conditional models).
+kernel of ``ops/fused_elbo.py`` runs here. A VQ checkpoint's ``--mode
+sample`` without ``--prior`` draws codes from the EMA usage marginal;
+``--mode continue`` keeps the first ``--keep-cols`` code-grid time columns
+of real rolls and lets the prior write the rest. ``--label`` steers a
+class-conditional prior; for conditional VAEs it raises
+``NotImplementedError`` (ROADMAP item 17).
 """
 
 from __future__ import annotations
@@ -30,8 +35,6 @@ import numpy as np
 import torch
 
 from midi_vae_tpu_torch.core.device import DeviceLike, resolve_device
-
-_VQ_ARCHS = ("vqvae", "foldedvqvae")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -56,15 +59,19 @@ def get_parser() -> argparse.ArgumentParser:
                         help="Use the raw (non-averaged) parameters even when the checkpoint carries EMA "
                              "weights. Default: EMA weights are preferred when present.")
     parser.add_argument("--label", type=int, default=None,
-                        help="Conditional checkpoints: generate this class (not ported yet, ROADMAP item 17)")
+                        help="Class-conditional code priors (train_prior --conditional): generate this class. "
+                             "Default for --mode sample: one class per grid column. Conditional checkpoints "
+                             "are not ported yet (ROADMAP item 17)")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the GPU")
     parser.add_argument("--prior", type=str, default=None,
-                        help="VQ-VAE checkpoints: a trained code prior (not ported yet, ROADMAP item 13)")
+                        help="VQ-VAE checkpoints, --mode sample/continue: a trained code prior "
+                             "(cli/train_prior.py) for ancestral sampling instead of the i.i.d. EMA-marginal draw")
     parser.add_argument("--temperature", type=float, default=1.0,
                         help="Sampling temperature for --prior draws. Default: %(default)s")
     parser.add_argument("--top-p", type=float, default=None, help="Nucleus sampling for --prior draws. Default: off")
     parser.add_argument("--keep-cols", type=int, default=None,
-                        help="--mode continue: code-grid time columns to keep (not ported yet, ROADMAP item 13)")
+                        help="--mode continue: how many code-grid TIME columns of each input roll to keep "
+                             "before the prior writes the rest (default: half the grid)")
     return parser
 
 
@@ -78,18 +85,12 @@ def _refuse(gaps) -> None:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Refuse the flags of features the port does not have yet."""
-    _refuse([
-        (args.prior is not None, "--prior (two-stage VQ sampling)", 13),
-        (args.mode == "continue", "--mode continue", 13),
-        (args.keep_cols is not None, "--keep-cols", 13),
-        (args.label is not None, "--label (conditional models)", 17),
-    ])
+    _refuse([(args.label is not None and args.prior is None, "--label (conditional models)", 17)])
 
 
 def _check_checkpoint_ported(cfg: dict) -> None:
     """Refuse checkpoints of models the port does not have yet."""
     _refuse([
-        (str(cfg.get("arch", "")).lower() in _VQ_ARCHS, "a VQ-VAE checkpoint", 12),
         (bool(cfg.get("conditional")), "a conditional checkpoint", 17),
         (bool(cfg.get("torch_compat")), "a torch_compat checkpoint", 17),
         (cfg.get("stem", "conv") != "conv" or cfg.get("head", "deconv") != "deconv", "stem s2d / head d2s", 17),
@@ -122,6 +123,8 @@ def _load_model_and_state(checkpoint_path: str, use_ema: bool = True, payload=No
         input_dim=image_size,
         hidden_dims=tuple(cfg.get("hidden_dims") or (32, 64, 128, 256)),
         fold=int(cfg.get("fold", 4)),
+        codebook_size=int(cfg.get("codebook_size") or 512),
+        vq_decay=float(cfg.get("vq_decay") or 0.99),
         device=device,
     )
     state = payload["state"]
@@ -214,6 +217,82 @@ def _resolve_export_threshold(args, model, cfg, dataset, data_dir, image_size, s
     return best
 
 
+def load_matching_prior(path: str, model, label: Optional[int], device):
+    """Load a code prior for ``model`` on ``device``: its geometry must
+    match the checkpoint's, and ``label`` its class count. Returns
+    ``(prior, number of classes)``."""
+    from midi_vae_tpu_torch.cli.train_prior import load_prior
+
+    prior, pcfg = load_prior(path, device=device)
+    if int(pcfg["num_codes"]) != int(model.codebook_size) or int(pcfg["grid"]) != model.last_conv_size:
+        raise SystemExit(
+            f"prior geometry (K={pcfg['num_codes']}, grid={pcfg['grid']}) does not match "
+            f"the checkpoint (K={model.codebook_size}, grid={model.last_conv_size})"
+        )
+    classes = int(pcfg.get("num_classes") or 0)
+    if classes > 0 and label is not None and not (0 <= label < classes):
+        raise SystemExit(f"--label must be in [0, {classes - 1}] (prior has {classes} classes), got {label}")
+    if classes == 0 and label is not None:
+        raise SystemExit(
+            "--label needs a class-conditional prior (train_prior --conditional); "
+            "this prior is unconditional, so the label would be silently ignored"
+        )
+    return prior, classes
+
+
+def _prior_images(args, model, dataset, data_dir, image_size, cfg, dev) -> torch.Tensor:
+    """Two-stage generation through ``--prior``: ancestral code draws (all
+    free in ``sample`` mode; the first ``--keep-cols`` time columns of real
+    rolls forced in ``continue`` mode) decoded by the VQ model."""
+    from midi_vae_tpu_torch.data.transforms import denormalize
+    from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
+
+    prior, classes = load_matching_prior(args.prior, model, args.label, dev)
+    s = model.last_conv_size
+    sample_kw = dict(temperature=args.temperature, top_p=args.top_p)
+    if args.mode == "sample":
+        y = None
+        if classes > 0:
+            # --label K: every sample class K; default: one class per grid column
+            y = (torch.full((args.num_samples,), int(args.label)) if args.label is not None
+                 else torch.arange(args.num_samples) % classes)
+            print(f"conditional prior sampling: labels {y.tolist()}")
+        idx = sample_codes_autoregressive(prior, args.seed, args.num_samples, s, y=y, **sample_kw)
+        with torch.inference_mode():
+            return model.decode_indices(idx)
+
+    keep = s // 2 if args.keep_cols is None else args.keep_cols
+    if not (0 < keep < s):
+        raise SystemExit(
+            f"--keep-cols must be in [1, {s - 1}] (grid is {s}x{s}; keeping every "
+            f"column would be reconstruction, keeping none would be sampling), got {keep}"
+        )
+    x, yb, spec = _fetch_eval_batch(dataset, data_dir, image_size, args.num_samples, cfg, dev)
+    n = int(x.shape[0])
+    with torch.inference_mode():
+        codes = model.encode_indices(x)
+    mask = np.zeros((s, s), bool)
+    mask[:, :keep] = True  # grid axis j is time (rolls are [pitch, time])
+    y = None
+    if classes > 0:
+        if args.label is None:
+            # dataset labels condition the prior directly: validate them as --label is
+            labels = yb[:n].cpu().numpy()
+            if labels.size and not ((labels >= 0) & (labels < classes)).all():
+                raise SystemExit(
+                    f"dataset labels {sorted(set(labels.tolist()) - set(range(classes)))} "
+                    f"are outside this prior's class range [0, {classes - 1}]; "
+                    "pass --label to condition on a fixed class instead"
+                )
+        y = torch.full((n,), int(args.label)) if args.label is not None else yb[:n]
+    idx = sample_codes_autoregressive(prior, args.seed, n, s, y=y, known=codes, known_mask=mask, **sample_kw)
+    with torch.inference_mode():
+        cont = model.decode_indices(idx)
+    print(f"kept {keep}/{s} code columns = first {keep * image_size // s}/{image_size} roll columns")
+    # input | continuation pairs, so the seam is visible
+    return torch.stack([denormalize(spec, x), cont], dim=1).reshape(-1, *cont.shape[1:])
+
+
 def cli(argv=None) -> np.ndarray:
     """Command-line interface; returns the generated images [N, H, W, C]
     (f32, on the host) that the PNG shows."""
@@ -241,8 +320,21 @@ def cli(argv=None) -> np.ndarray:
     dataset = args.dataset or ckpt_dataset
     data_dir = args.data_dir or cfg.get("data_dir")  # the checkpoint remembers its corpus root
     out_path = args.out or f"{args.mode}.png"
+    is_vq = getattr(model, "latent_kind", "gaussian") == "vq"
 
-    if args.mode == "sample":
+    if args.prior is not None and not (args.mode in ("sample", "continue") and is_vq):
+        raise SystemExit("--prior applies to --mode sample/continue on VQVAE checkpoints only")
+    if args.mode == "continue" and args.prior is None:
+        raise SystemExit(
+            "--mode continue needs --prior: a trained code prior writes the "
+            "continuation (the EMA marginal has no spatial structure to continue with)"
+        )
+    if args.keep_cols is not None and args.mode != "continue":
+        raise SystemExit("--keep-cols applies to --mode continue only")
+
+    if args.prior is not None:
+        images = _prior_images(args, model, dataset, data_dir, image_size, cfg, dev)
+    elif args.mode == "sample":
         images = sample_prior(model, args.num_samples, args.seed)
     elif args.mode == "reconstruct":
         x, _, spec = _fetch_eval_batch(dataset, data_dir, image_size, args.num_samples, cfg, dev)
@@ -254,6 +346,12 @@ def cli(argv=None) -> np.ndarray:
         path = interpolate(model, x[:1], x[1:2], steps=args.steps, mode="slerp" if args.slerp else "lerp")
         images = path[:, 0]
     else:  # traverse: one row per latent dimension, varied across ±2.5σ
+        if is_vq:
+            # the VQ latent is an [s, s, D] grid without a posterior σ
+            raise SystemExit(
+                "--mode traverse applies to Gaussian-latent models; for a VQVAE "
+                "checkpoint use sample/reconstruct/interpolate"
+            )
         x, _, _ = _fetch_eval_batch(dataset, data_dir, image_size, 1, cfg, dev)
         grid_rows = traverse(model, x, steps=args.steps)
         images = grid_rows.reshape(-1, *grid_rows.shape[2:])

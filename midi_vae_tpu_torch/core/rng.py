@@ -10,11 +10,14 @@ Two kinds of randomness, both stable under a resume at any epoch:
   :func:`derive_step_seed` of (epoch seed, step), so a resumed run
   replays the draws of an uninterrupted one. The loaders key a batch's
   random transforms the same way from :func:`host_epoch_seed`.
+
+Discrete draws (:func:`categorical`) take an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # the clamp the JAX package applies before seeding (core/rng.py:28)
 _SEED_MODULUS = 0xFFFF_FFFF
@@ -50,3 +53,14 @@ def host_epoch_seed(seed: int, epoch: int, process_index: int = 0) -> int:
 def host_rng(seed: int, epoch: int, process_index: int = 0) -> np.random.Generator:
     """Numpy Generator seeded with :func:`host_epoch_seed`."""
     return np.random.default_rng(host_epoch_seed(seed, epoch, process_index))
+
+
+def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row of ``[..., K]`` logits (−inf entries are never
+    drawn), as ``jax.random.categorical`` draws: the argmax of the logits
+    plus Gumbel noise, here from ``generator`` on the logits' device. The
+    stream advances by one uniform per logit whatever the values, so draws
+    at later calls do not depend on earlier logits."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits.float() + gumbel, dim=-1)

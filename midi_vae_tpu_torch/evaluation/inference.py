@@ -45,7 +45,11 @@ def _decode_steps(model, zs: torch.Tensor) -> torch.Tensor:
 @torch.inference_mode()
 def sample_prior(model, num_samples: int, seed: int = 0, *, z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode ``num_samples`` prior draws z ~ N(0, I); returns [n, H, W, C]
-    probabilities on the model's device."""
+    probabilities on the model's device. A VQ model (``latent_kind ==
+    "vq"``) has no Gaussian prior: it decodes code grids drawn from its EMA
+    usage marginal instead (``VQVAE.sample``)."""
+    if getattr(model, "latent_kind", "gaussian") == "vq":
+        return model.sample(num_samples, seed)
     dev = _device(model)
     if z is None:
         z = normal_draw((num_samples, model.latent_dim), seed, dev)
@@ -55,7 +59,8 @@ def sample_prior(model, num_samples: int, seed: int = 0, *, z: Optional[torch.Te
 @torch.inference_mode()
 def reconstruct(model, x: torch.Tensor, seed: int = 0, *, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Reconstruct NHWC ``x`` through one posterior draw (the model's
-    forward in eval mode, as the JAX package's ``reconstruct``)."""
+    forward in eval mode, as the JAX package's ``reconstruct``; a VQ
+    model's forward ignores the draw)."""
     if eps is None:
         eps = normal_draw((x.shape[0], model.latent_dim), seed, x.device)
     return model(x, train=False, eps=eps.to(x.device)).output

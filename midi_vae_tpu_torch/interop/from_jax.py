@@ -6,17 +6,26 @@ into a model of this package. The torch modules carry flax's module
 names, so a torch name maps onto a flax path piece by piece; only the
 leaf name and the layout change:
 
-======================  ==========================  ===========================
-torch (module.leaf)     flax (collection/leaf)      layout
-======================  ==========================  ===========================
-Conv.weight             params/kernel               HWIO → OIHW
-ConvTranspose.weight    params/kernel               flip H, W; HWIO → IOHW
-Dense.weight            params/kernel               [in, out] → [out, in]
-BatchNorm.weight        params/scale                as is
-BatchNorm.running_mean  batch_stats/mean            as is
-BatchNorm.running_var   batch_stats/var             as is
-*.bias                  params/bias                 as is
-======================  ==========================  ===========================
+=============================  ==========================  ===========================
+torch (module.leaf)            flax (collection/leaf)      layout
+=============================  ==========================  ===========================
+Conv.weight (also MaskedConv)  params/kernel               HWIO → OIHW
+ConvTranspose.weight           params/kernel               flip H, W; HWIO → IOHW
+Dense.weight                   params/kernel               [in..., out...] → [out, in]
+BatchNorm.weight               params/scale                as is
+BatchNorm.running_mean         batch_stats/mean            as is
+BatchNorm.running_var          batch_stats/var             as is
+LayerNorm.weight               params/scale                as is
+VectorQuantizerEMA.<buffer>    batch_stats/<buffer>        as is
+TransformerCodePrior.bos,      params/bos, pos_embed       as is
+  .pos_embed
+*.bias                         params/bias                 flattened
+=============================  ==========================  ===========================
+
+A Dense's flax kernel may have more than two axes: the attention's
+``query``/``key``/``value`` kernels are [F, H, F/H] and ``out`` [H, F/H,
+F] (flax ``DenseGeneral``), flattened here to the torch [out, in] matrix.
+A ``MaskedConv``'s mask is a constant outside the state dict.
 
 :func:`flax_name_map` exposes the mapping, and :func:`to_flax_layout`
 converts back, so tests can compare gradients and updated parameters
@@ -31,7 +40,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from midi_vae_tpu_torch.models.prior import LayerNorm, TransformerCodePrior
 from midi_vae_tpu_torch.models.vae import BatchNorm, Conv, ConvTranspose, Dense
+from midi_vae_tpu_torch.models.vq import VectorQuantizerEMA
 
 _BN_LEAVES = {
     "weight": ("params", "scale"),
@@ -40,6 +51,9 @@ _BN_LEAVES = {
     "running_var": ("batch_stats", "var"),
 }
 _LAYER_LEAVES = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+_LN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias")}
+_QUANTIZER_LEAVES = {k: ("batch_stats", k) for k in ("codebook", "cluster_size", "embed_avg")}
+_PRIOR_LEAVES = {k: ("params", k) for k in ("bos", "pos_embed")}
 
 
 def _owner(model: nn.Module, name: str) -> Tuple[nn.Module, str, Tuple[str, ...]]:
@@ -56,6 +70,12 @@ def flax_name_map(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
             collection, flax_leaf = _BN_LEAVES[leaf]
         elif isinstance(module, (Conv, ConvTranspose, Dense)):
             collection, flax_leaf = _LAYER_LEAVES[leaf]
+        elif isinstance(module, LayerNorm):
+            collection, flax_leaf = _LN_LEAVES[leaf]
+        elif isinstance(module, VectorQuantizerEMA):
+            collection, flax_leaf = _QUANTIZER_LEAVES[leaf]
+        elif isinstance(module, TransformerCodePrior) and leaf in _PRIOR_LEAVES:
+            collection, flax_leaf = _PRIOR_LEAVES[leaf]
         else:
             raise TypeError(f"no flax counterpart known for {name} ({type(module).__name__})")
         out[name] = (collection, mod_path + (flax_leaf,))
@@ -63,14 +83,15 @@ def flax_name_map(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
 
 
 def _to_torch(module: nn.Module, leaf: str, array: np.ndarray) -> np.ndarray:
+    if isinstance(module, Dense):
+        out, inp = module.weight.shape
+        return array.reshape(inp, out).T if leaf == "weight" else array.reshape(-1)
     if leaf != "weight":
         return array
     if isinstance(module, Conv):
         return array.transpose(3, 2, 0, 1)
     if isinstance(module, ConvTranspose):
         return np.flip(array, (0, 1)).transpose(2, 3, 0, 1)
-    if isinstance(module, Dense):
-        return array.T
     return array
 
 

@@ -1,6 +1,7 @@
 """Model registry (counterpart of ``midi_vae_tpu/models/registry.py``).
 
-Ported so far: ``VanillaVAE`` (reference layout) and ``FoldedVAE``.
+Ported so far: ``VanillaVAE`` (reference layout), ``FoldedVAE`` and the
+VQ-VAEs ``VQVAE`` and ``FoldedVQVAE``.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ import torch
 from midi_vae_tpu_torch.core.device import DeviceLike, resolve_device
 from midi_vae_tpu_torch.models.folded import FoldedVAE
 from midi_vae_tpu_torch.models.vae import VanillaVAE
+from midi_vae_tpu_torch.models.vq import VQVAE, FoldedVQVAE
 
-MODEL_REGISTRY = {"vanillavae": VanillaVAE, "foldedvae": FoldedVAE}
+MODEL_REGISTRY = {"vanillavae": VanillaVAE, "foldedvae": FoldedVAE, "vqvae": VQVAE, "foldedvqvae": FoldedVQVAE}
+VQ_ARCHS = ("vqvae", "foldedvqvae")
 
 
 def build_model(
@@ -31,15 +34,30 @@ def build_model(
     head: str = "deconv",
     norm: str = "batch",
     num_classes: int = 0,
+    codebook_size: int = 512,
+    vq_decay: float = 0.99,
+    torch_compat: bool = False,
     seed: int = 0,
     device: DeviceLike = "cuda",
 ):
     """Construct a model by architecture name (case-insensitive), with
-    Xavier-initialised parameters drawn from ``seed`` on the CPU and then
-    moved to ``device`` (CUDA by default; raises when there is none)."""
+    Xavier-initialised parameters (and a VQ codebook) drawn from ``seed`` on
+    the CPU and then moved to ``device`` (CUDA by default; raises when there
+    is none). ``codebook_size`` and ``vq_decay`` apply to the VQ models,
+    which refuse ``fused_reparam``, labels and ``torch_compat`` as the JAX
+    package's registry does."""
     key = arch.lower()
     if key not in MODEL_REGISTRY:
         raise ValueError(f"Unrecognised architecture: {arch}. Ported: {sorted(MODEL_REGISTRY)}")
+    if key in VQ_ARCHS:
+        if torch_compat:
+            raise ValueError("torch_compat is reference-parity mode; the reference has no VQ-VAE")
+        if fused_reparam:
+            raise ValueError("VQVAE has no reparameterization; drop --fused")
+        if num_classes:
+            raise ValueError("VQVAE has no conditional variant; use --model VanillaVAE for --conditional")
+    elif torch_compat:
+        raise NotImplementedError("torch_compat is not ported to the PyTorch package yet (ROADMAP Queue 1 item 17)")
     dev = resolve_device(device)
     kwargs = dict(
         in_channels=in_channels,
@@ -57,6 +75,8 @@ def build_model(
         kwargs["hidden_dims"] = tuple(hidden_dims)
     if dtype is not None:
         kwargs["dtype"] = dtype
-    if key == "foldedvae":
+    if key in ("foldedvae", "foldedvqvae"):
         kwargs["fold"] = fold
+    if key in VQ_ARCHS:
+        kwargs.update(codebook_size=int(codebook_size), vq_decay=float(vq_decay))
     return MODEL_REGISTRY[key](**kwargs).to(dev)

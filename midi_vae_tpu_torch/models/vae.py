@@ -70,34 +70,40 @@ def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(features, (3, 3), strides, "SAME")`` on NCHW."""
+    """flax ``nn.Conv(features, (k, k), strides, "SAME")`` on NCHW (k = 3 unless given)."""
 
     def __init__(
         self,
         in_features: int,
         features: int,
         *,
+        kernel_size: int = 3,
         stride: int = 1,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator,
         bias_value: float = 0.0,
     ):
         super().__init__()
+        self.kernel_size = kernel_size
         self.stride = stride
         self.dtype = dtype
-        self.weight = nn.Parameter(_xavier(torch.empty(features, in_features, 3, 3), generator))
+        self.weight = nn.Parameter(_xavier(torch.empty(features, in_features, kernel_size, kernel_size), generator))
         self.bias = nn.Parameter(torch.full((features,), bias_value))
 
+    def kernel(self) -> torch.Tensor:
+        """The kernel the conv applies, ``[out, in, k, k]`` in f32."""
+        return self.weight
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hlo, hhi = _same_pads(x.shape[2], 3, self.stride)
-        wlo, whi = _same_pads(x.shape[3], 3, self.stride)
+        hlo, hhi = _same_pads(x.shape[2], self.kernel_size, self.stride)
+        wlo, whi = _same_pads(x.shape[3], self.kernel_size, self.stride)
         x = x.to(self.dtype)
         if (hlo, wlo) == (hhi, whi):
             padding = (hlo, wlo)
         else:
             x = F.pad(x, (wlo, whi, hlo, hhi))
             padding = 0
-        return F.conv2d(x, self.weight.to(self.dtype), self.bias.to(self.dtype), self.stride, padding)
+        return F.conv2d(x, self.kernel().to(self.dtype), self.bias.to(self.dtype), self.stride, padding)
 
 
 class ConvTranspose(nn.Module):
@@ -359,8 +365,12 @@ class VanillaVAE(nn.Module):
         decoder's natural size differs. Always contiguous."""
         s = self.last_conv_size
         h = self.decoder_input(z).reshape(-1, s, s, self.hidden_dims[-1]).permute(0, 3, 1, 2)
-        h = self.decoder(h, train)
-        logits = self.final_layer(h, train)
+        return self._decode_features(h, train)
+
+    def _decode_features(self, h: torch.Tensor, train: bool) -> torch.Tensor:
+        """NCHW features at the latent grid → NHWC logits through the
+        decoder and the final layer, cropped to ``input_dim``; contiguous."""
+        logits = self.final_layer(self.decoder(h, train), train)
         d = self.decoded_size
         if d != self.input_dim:
             off = (d - self.input_dim) // 2

@@ -13,9 +13,9 @@ message (errors are JSON on both wires).
     mu, log_var = c.encode(x)           # → ([N,D], [N,D])
     rolls = c.sample(n=16, seed=0)      # → [16,H,W,C]
     path = c.interpolate(a, b, steps=9) # → [9,H,W,C]
+    cont = c.continue_(x, keep_cols=8)  # VQ + --prior: → [N,H,W,C]
 
-Labels of conditional models and ``/continue`` are not ported yet
-(ROADMAP items 17 and 13).
+Labels of conditional models are not ported yet (ROADMAP item 17).
 """
 
 from __future__ import annotations
@@ -95,10 +95,35 @@ class ServingClient:
             return out[:, :d], out[:, d:]
         return np.asarray(out["mu"], np.float32), np.asarray(out["log_var"], np.float32)
 
-    def sample(self, n: int, seed: int = 0) -> np.ndarray:
-        """``n`` prior samples [n,H,W,C] drawn from ``seed``."""
-        out = self._post_params("/sample", {"n": int(n), "seed": int(seed)})
+    def sample(self, n: int, seed: int = 0, *, temperature: float = 1.0, top_p: Optional[float] = None) -> np.ndarray:
+        """``n`` prior samples [n,H,W,C] drawn from ``seed``; ``temperature``
+        and ``top_p`` apply to a server with a code prior attached."""
+        params = {"n": int(n), "seed": int(seed)}
+        if temperature != 1.0:
+            params["temperature"] = float(temperature)
+        if top_p is not None:
+            params["top_p"] = float(top_p)
+        out = self._post_params("/sample", params)
         return out if isinstance(out, np.ndarray) else np.asarray(out["samples"], np.float32)
+
+    def continue_rolls(self, x: np.ndarray, keep_cols: int, *, seed: int = 0, temperature: float = 1.0,
+                       top_p: Optional[float] = None) -> np.ndarray:
+        """[N,H,W,C] (or [H,W,C]) rolls → continuations of the same shape: the
+        server keeps each roll's first ``keep_cols`` code-grid time columns
+        and its code prior writes the rest."""
+        x = np.asarray(x, np.float32)
+        if x.ndim == 3:
+            x = x[None]
+        params = {"keep_cols": int(keep_cols), "seed": int(seed), "temperature": float(temperature)}
+        if top_p is not None:
+            params["top_p"] = float(top_p)
+        if self.wire == "npy":
+            query = "&".join(f"{k}={v}" for k, v in params.items())
+            return self._request(f"/continue?{query}", npy_dumps(x), {"Content-Type": NPY_CONTENT_TYPE})
+        out = self._post_params("/continue", {"images": x.tolist(), **params})
+        return out if isinstance(out, np.ndarray) else np.asarray(out["continuations"], np.float32)
+
+    continue_ = continue_rolls
 
     def interpolate(self, a: np.ndarray, b: np.ndarray, *, steps: int = 8, slerp: bool = False) -> np.ndarray:
         """[H,W,C] endpoints → the [steps,H,W,C] latent-space path."""

@@ -7,13 +7,25 @@ A stdlib ``ThreadingHTTPServer`` around :class:`InferenceService`:
   [N, H, W, C] or [H, W, C]) → ``{"reconstructions": [...]}``, the
   posterior-mean decode (no draw);
 - ``POST /encode``: the same input → ``{"mu": [...], "log_var": [...]}``;
-- ``POST /sample``: ``{"n": 4, "seed": 0}`` → ``{"samples": [...]}``;
+- ``POST /sample``: ``{"n": 4, "seed": 0}`` → ``{"samples": [...]}``; with
+  a code prior attached (``--prior``, VQ checkpoints) also
+  ``"temperature"`` and ``"top_p"``, drawn as ``generate --prior`` draws;
 - ``POST /interpolate``: ``{"a": [...], "b": [...], "steps": 8,
   "slerp": false}`` ([H, W, C] endpoints) → ``{"path": [...]}``;
-- ``GET /healthz``: liveness, the model and the batchers' counters.
+- ``POST /continue`` (with ``--prior``): ``{"images": [...], "keep_cols":
+  8, "seed": 0, "temperature": 1.0, "top_p": null}`` → ``{"continuations":
+  [...]}``: each roll's first ``keep_cols`` code-grid time columns kept,
+  the rest written by the prior (``generate --mode continue``);
+- ``GET /healthz``: liveness, the model, the attached prior and the
+  batchers' counters.
 
-Run: ``python -m midi_vae_tpu_torch.serving.server --checkpoint CKPT --port 8000``
+Run: ``python -m midi_vae_tpu_torch.serving.server --checkpoint CKPT [--prior PRIOR] --port 8000``
 (on the GPU; ``--cpu`` on the CPU).
+
+For a VQ checkpoint /encode's ``mu`` is the flattened pre-quantization
+latent [N, s·s·D] (``log_var`` zero), /reconstruct and /interpolate decode
+through the quantizer, and /sample without a prior draws codes from the
+EMA usage marginal.
 
 /reconstruct and /encode go through a :class:`MicroBatcher` each
 (concurrent requests coalesce into one forward on the device);
@@ -23,18 +35,19 @@ Run: ``python -m midi_vae_tpu_torch.serving.server --checkpoint CKPT --port 8000
 dispatch copies its padded batch to the device once and its result back
 once; the copy back is the request's synchronisation with the device.
 
-**Binary wire format**: /reconstruct, /encode and /interpolate also take a
-raw ``.npy`` body (``Content-Type: application/x-npy`` or
+**Binary wire format**: /reconstruct, /encode, /interpolate and /continue
+also take a raw ``.npy`` body (``Content-Type: application/x-npy`` or
 ``application/octet-stream``; /interpolate one [2, H, W, C] array with
-``steps`` and ``slerp`` on the query string), and every endpoint answers
+``steps`` and ``slerp`` on the query string, /continue the rolls with
+``keep_cols``, ``seed``, ``temperature`` and ``top_p`` there), and every endpoint answers
 ``.npy`` when the request is binary or sends ``Accept:
 application/x-npy``. The npy /encode answer is one [N, 2·latent_dim]
 array, ``mu ‖ log_var``. Errors are always JSON: 400 for the client's
 faults, 413 for an oversized body, 500 for the server's own.
 
 Not ported yet: ``--artifact`` (``torch.export`` artifacts, ROADMAP item
-15), ``--prior`` and ``/continue`` (two-stage VQ sampling, item 13),
-``--compilation-cache`` and labels of conditional models (item 17).
+15), ``--compilation-cache`` and labels (conditional models and
+class-conditional priors, item 17).
 """
 
 from __future__ import annotations
@@ -70,12 +83,12 @@ class InferenceService:
         self, checkpoint_path: str, *, max_batch: int = 64, max_wait_ms: float = 2.0,
         device: DeviceLike = "cuda", prior_path: Optional[str] = None,
     ):
-        if prior_path is not None:
-            raise NotImplementedError(_not_ported("--prior (two-stage VQ sampling)", 13))
         from midi_vae_tpu_torch.cli.generate import _load_model_and_state
 
         model, _, image_size, channels, _ = _load_model_and_state(checkpoint_path, device=device)
         self._init_from_parts(model, image_size, channels, max_batch=max_batch, max_wait_ms=max_wait_ms)
+        if prior_path is not None:
+            self.attach_prior(prior_path)
 
     @classmethod
     def from_parts(
@@ -92,7 +105,10 @@ class InferenceService:
         self.device = next(model.parameters()).device
         self.model_name = type(model).__name__
         self.image_size, self.channels = image_size, channels
-        self.latent_dim = int(model.latent_dim)
+        # the width of the vectors on the encode/decode wire: a VQ model's is the flattened [s·s·D] grid
+        self.latent_dim = int(getattr(model, "flat_latent_dim", model.latent_dim))
+        self.latent_kind = getattr(model, "latent_kind", "gaussian")
+        self.prior, self.prior_info = None, None
         item_shape = (image_size, image_size, channels)
         self.reconstruct = MicroBatcher(
             self._reconstruct_rows, max_batch=max_batch, max_wait_ms=max_wait_ms, item_shape=item_shape
@@ -117,16 +133,91 @@ class InferenceService:
             enc = self.model.encode(self._to_device(rows), train=False)
             return torch.cat([enc.mu, enc.log_var], dim=-1).float().cpu().numpy()
 
-    def sample(self, n: int, seed: int = 0) -> np.ndarray:
+    def attach_prior(self, prior_path: str) -> None:
+        """Load a trained code prior (``cli/train_prior.py``) for this VQ
+        checkpoint on the model's device: /sample then draws codes
+        ancestrally, and /continue opens. The geometry is checked here, so
+        a mismatched prior fails at start-up."""
+        from midi_vae_tpu_torch.cli.train_prior import load_prior
+
+        if self.latent_kind != "vq":
+            raise ValueError(
+                f"--prior needs a VQ-VAE checkpoint; this is a {self.model_name} "
+                "(Gaussian latent — its prior is already N(0, I))"
+            )
+        prior, pcfg = load_prior(prior_path, device=self.device)
+        if int(pcfg["num_codes"]) != int(self.model.codebook_size) or int(pcfg["grid"]) != self.model.last_conv_size:
+            raise ValueError(
+                f"prior geometry (K={pcfg['num_codes']}, grid={pcfg['grid']}) does not "
+                f"match the checkpoint (K={self.model.codebook_size}, grid={self.model.last_conv_size})"
+            )
+        if int(pcfg.get("num_classes") or 0) > 0:
+            raise NotImplementedError(_not_ported("serving a class-conditional prior (labels)", 17))
+        self.prior = prior
+        self.prior_info = {"arch": str(pcfg.get("arch") or "pixelcnn"), "num_classes": 0,
+                           "test_nll": pcfg.get("test_nll"), "path": prior_path}
+
+    @staticmethod
+    def _check_sampling(temperature: float, top_p: Optional[float]) -> None:
+        if not (0.0 < temperature <= 100.0):
+            raise ValueError(f"temperature must be in (0, 100], got {temperature}")
+        if top_p is not None and not (0.0 < top_p <= 1.0):
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+    def sample(self, n: int, seed: int = 0, temperature: float = 1.0, top_p: Optional[float] = None) -> np.ndarray:
         """``n`` prior samples [n, H, W, C]: ``bucket(n)`` rows drawn from
         ``seed`` and decoded, the first ``n`` returned (so ``sample(3, s)``
         is the first 3 rows of ``sample(4, s)``, and the decode meets few
-        batch shapes)."""
+        batch shapes). With a code prior attached the rows are ancestral
+        code draws (``temperature``, ``top_p``) decoded by the VQ model, as
+        ``generate --prior`` draws them for the same seed."""
         from midi_vae_tpu_torch.evaluation.inference import sample_prior
+        from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
 
         if not (1 <= n <= self.MAX_SAMPLES):
             raise ValueError(f"n must be in [1, {self.MAX_SAMPLES}], got {n}")
-        return sample_prior(self.model, _bucket(n), seed).float().cpu().numpy()[:n]
+        self._check_sampling(temperature, top_p)
+        if self.prior is None:
+            if temperature != 1.0 or top_p is not None:
+                raise ValueError("temperature and top_p apply to prior-backed (two-stage) sampling; this "
+                                 "deployment has no code prior attached (--prior)")
+            return sample_prior(self.model, _bucket(n), seed).float().cpu().numpy()[:n]
+        idx = sample_codes_autoregressive(self.prior, seed, _bucket(n), self.model.last_conv_size,
+                                          temperature=temperature, top_p=top_p)
+        with torch.inference_mode():
+            return self.model.decode_indices(idx).float().cpu().numpy()[:n]
+
+    def continue_rolls(self, x: np.ndarray, keep_cols: int, seed: int = 0, temperature: float = 1.0,
+                       top_p: Optional[float] = None) -> np.ndarray:
+        """Two-stage continuation of [N, H, W, C] rolls: encode to code grids,
+        keep the first ``keep_cols`` time columns, let the prior write the
+        rest, decode (``generate --mode continue``). The batch is padded to
+        ``bucket(N)`` rows, as /sample's."""
+        from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
+
+        if self.prior is None:
+            raise ValueError("/continue needs a code prior attached (--prior)")
+        s = self.model.last_conv_size
+        if not (0 < keep_cols < s):
+            raise ValueError(f"keep_cols must be in [1, {s - 1}] (code grid is {s}x{s}), got {keep_cols}")
+        self._check_sampling(temperature, top_p)
+        item = (self.image_size, self.image_size, self.channels)
+        if x.ndim != 4 or tuple(x.shape[1:]) != item:
+            raise ValueError(f"images must be [N, {item[0]}, {item[1]}, {item[2]}], got {x.shape}")
+        n = len(x)
+        if n < 1:
+            raise ValueError("need at least one image to continue, got an empty batch")
+        b = _bucket(n)
+        if b > n:
+            x = np.concatenate([x, np.zeros((b - n, *item), np.float32)])
+        mask = np.zeros((s, s), bool)
+        mask[:, :keep_cols] = True  # grid axis j is time (rolls are [pitch, time])
+        with torch.inference_mode():
+            codes = self.model.encode_indices(self._to_device(x))
+        idx = sample_codes_autoregressive(self.prior, seed, b, s, temperature=temperature, top_p=top_p,
+                                          known=codes, known_mask=mask)
+        with torch.inference_mode():
+            return self.model.decode_indices(idx).float().cpu().numpy()[:n]
 
     def interpolate(self, a: np.ndarray, b: np.ndarray, steps: int, mode: str) -> np.ndarray:
         """The latent path [steps, H, W, C] between two [H, W, C] images."""
@@ -180,7 +271,7 @@ def make_handler(service: InferenceService):
                     "latent_dim": service.latent_dim,
                     "conditional": False,
                     "num_classes": 0,
-                    "prior": None,
+                    "prior": service.prior_info,
                     "batches_dispatched": service.reconstruct.batches_dispatched,
                     "requests_served": service.reconstruct.requests_served,
                     "encode_batches_dispatched": service.encode.batches_dispatched,
@@ -206,18 +297,17 @@ def make_handler(service: InferenceService):
                 if not isinstance(payload, dict):
                     raise ValueError("a JSON body must be an object")
 
-                # fields of features not ported yet: labels of conditional
-                # models, and the sampling knobs of a code prior
+                # labels of conditional models are not ported yet
                 if {"label", "labels"} & (set(query) | set(payload)):
                     raise ValueError("this checkpoint is unconditional; drop the label field")
-                if float(payload.get("temperature", 1.0)) != 1.0 or payload.get("top_p") is not None:
-                    raise ValueError("temperature and top_p apply to prior-backed (two-stage) sampling: "
-                                     + _not_ported("--prior", 13))
 
                 if route == "/sample":
                     if binary_req:
                         raise ValueError("/sample takes JSON parameters ({'n', 'seed'}), not a tensor body")
-                    out = service.sample(int(payload.get("n", 1)), int(payload.get("seed", 0)))
+                    top_p = payload.get("top_p")
+                    out = service.sample(int(payload.get("n", 1)), int(payload.get("seed", 0)),
+                                         temperature=float(payload.get("temperature", 1.0)),
+                                         top_p=float(top_p) if top_p is not None else None)
                     self._npy(200, out) if wants_npy else self._json(200, {"samples": out.tolist()})
                 elif route == "/interpolate":
                     if binary_req:
@@ -237,7 +327,27 @@ def make_handler(service: InferenceService):
                     out = service.interpolate(a, b, steps=steps, mode=mode)
                     self._npy(200, out) if wants_npy else self._json(200, {"path": out.tolist()})
                 elif route == "/continue":
-                    raise ValueError(_not_ported("/continue (two-stage VQ continuation)", 13))
+                    # the rolls in the body; the scalars on the JSON body, or on the query string of a binary one
+                    if binary_req:
+                        x = np.asarray(npy_loads(raw), np.float32)
+                        params = {k: v[0] for k, v in query.items()}
+                    else:
+                        x = np.asarray(payload["images"], np.float32)
+                        params = payload
+                    if "keep_cols" not in params:
+                        raise ValueError("'keep_cols' is required for /continue "
+                                         "(number of leading code TIME columns to keep)")
+                    if x.ndim == 3:
+                        x = x[None]
+                    if len(x) > self.MAX_REQUEST_ITEMS:
+                        raise ValueError(f"at most {self.MAX_REQUEST_ITEMS} images per request, got {len(x)}")
+                    top_p = params.get("top_p")
+                    out = service.continue_rolls(
+                        x, int(params["keep_cols"]), seed=int(params.get("seed", 0)),
+                        temperature=float(params.get("temperature", 1.0)),
+                        top_p=float(top_p) if top_p is not None else None,
+                    )
+                    self._npy(200, out) if wants_npy else self._json(200, {"continuations": out.tolist()})
                 elif route in ("/reconstruct", "/encode"):
                     x = np.asarray(npy_loads(raw) if binary_req else payload["images"], np.float32)
                     if x.ndim == 3:
@@ -292,15 +402,14 @@ def serve(
     prior: Optional[str] = None,
 ) -> HTTPServer:
     """Start serving ``checkpoint`` on ``device`` in a background thread and
-    return the server (``port=0`` picks a free port: ``server_address[1]``).
-    Stop it with ``shutdown()``, ``server_close()`` and ``service.close()``."""
+    return the server (``port=0`` picks a free port: ``server_address[1]``);
+    ``prior`` attaches a code prior to a VQ checkpoint. Stop it with
+    ``shutdown()``, ``server_close()`` and ``service.close()``."""
     if artifact is not None:
         raise NotImplementedError(_not_ported("serving an exported artifact (torch.export)", 15))
-    if prior is not None:
-        raise NotImplementedError(_not_ported("--prior (two-stage VQ sampling)", 13))
     if checkpoint is None:
         raise ValueError("pass checkpoint=")
-    httpd = make_server(InferenceService(checkpoint, device=device), host, port)
+    httpd = make_server(InferenceService(checkpoint, device=device, prior_path=prior), host, port)
     print(f"serving {checkpoint} on http://{host}:{httpd.server_address[1]} ({httpd.service.device})")
     return httpd
 
@@ -311,7 +420,8 @@ def cli(argv: Optional[list] = None):
     source.add_argument("--checkpoint", help="Training checkpoint (.pt of this package)")
     source.add_argument("--artifact", metavar="DIR", help="Exported artifact (not ported yet, ROADMAP item 15)")
     parser.add_argument("--prior", metavar="PATH", default=None,
-                        help="Trained code prior for a VQ checkpoint (not ported yet, ROADMAP item 13)")
+                        help="Trained code prior (cli/train_prior.py) for a VQ checkpoint: /sample draws "
+                             "codes ancestrally instead of from the EMA code marginal, and /continue opens")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--compilation-cache", type=str, default=None, metavar="DIR",
@@ -322,11 +432,9 @@ def cli(argv: Optional[list] = None):
     args = parser.parse_args(argv)
     if args.artifact is not None:
         raise NotImplementedError(_not_ported("--artifact (torch.export artifacts)", 15))
-    if args.prior is not None:
-        raise NotImplementedError(_not_ported("--prior (two-stage VQ sampling)", 13))
     if args.compilation_cache:
         raise NotImplementedError(_not_ported("--compilation-cache", 17))
-    httpd = serve(args.checkpoint, args.port, args.host, device="cpu" if args.cpu else "cuda")
+    httpd = serve(args.checkpoint, args.port, args.host, device="cpu" if args.cpu else "cuda", prior=args.prior)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

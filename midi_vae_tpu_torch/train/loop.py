@@ -7,6 +7,9 @@ loop (train, validate, collapse alarm, best tracking, save, log, early
 stop) → final Test, Val and Train-under-eval sweeps. The step is eager
 PyTorch on ``device`` (CUDA unless the caller asks for the CPU); with
 ``config.fused`` its loss and reparameterization run the kernels K1–K3.
+VQ models (``VQVAE``, ``FoldedVQVAE``) train under the VQ objective, which
+refuses ``--fused``, and report their codebook health (perplexity, active
+codes) with every validation and the final test.
 
 Options the port does not have yet raise ``NotImplementedError`` naming
 their ROADMAP item (:func:`check_ported`), before any work is done.
@@ -46,8 +49,9 @@ from midi_vae_tpu_torch.io.checkpoint import (
 )
 from midi_vae_tpu_torch.io.logging import MetricLogger, PhaseTimer, generate_id, print_epoch_summary, write_png
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
-from midi_vae_tpu_torch.models.registry import build_model
+from midi_vae_tpu_torch.models.registry import VQ_ARCHS, build_model
 from midi_vae_tpu_torch.models.vae import param_group_label
+from midi_vae_tpu_torch.models.vq import codebook_metrics
 from midi_vae_tpu_torch.train.config import TrainConfig
 from midi_vae_tpu_torch.train.optim import build_optimizer, scale_lr
 from midi_vae_tpu_torch.train.state import (
@@ -58,14 +62,10 @@ from midi_vae_tpu_torch.train.state import (
     state_dict,
 )
 
-_VQ_ARCHS = ("vqvae", "foldedvqvae")
-
-
 def check_ported(config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for an option the port does not have
     yet, naming its ROADMAP item (Queue 1)."""
     gaps = [
-        (config.arch.lower() in _VQ_ARCHS or config.loss_type == "vq", "VQ models and the VQ objective", 12),
         (config.loss_type == "beta-tc", "the beta-TC objective", 17),
         (config.grad_accum != 1, "--grad-accum > 1", 7),
         (config.scan_steps != 1, "--scan-steps > 1 (scan-chunked epochs)", 9),
@@ -82,7 +82,7 @@ def check_ported(config: TrainConfig) -> None:
         (config.compilation_cache, "--compilation-cache", 17),
         (config.optimizer.lower() != "adamw", f"--optimizer {config.optimizer}", 17),
         (config.scheduler.lower() not in ("onecycle", "constant"), f"--scheduler {config.scheduler}", 17),
-        (config.arch.lower() not in ("vanillavae", "foldedvae", *_VQ_ARCHS), f"--model {config.arch}", 17),
+        (config.arch.lower() not in ("vanillavae", "foldedvae", *VQ_ARCHS), f"--model {config.arch}", 17),
     ]
     for missing, what, item in gaps:
         if missing:
@@ -167,6 +167,15 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         (tuple(transform_train.mean), tuple(transform_train.std)) if config.bce_targets == "raw" else None
     )
     seed = config.seed if config.seed is not None else int(time.time()) % 100000
+    # the VQ models train only under the VQ objective, and it only them
+    if config.arch.lower() in VQ_ARCHS:
+        if config.loss_type == "elbo":
+            config.loss_type = "vq"
+            print(f"--model {config.arch}: selecting the VQ objective (loss_type=vq)")
+        elif config.loss_type != "vq":
+            raise ValueError(f"--model {config.arch} trains with loss_type=vq, not {config.loss_type!r}")
+    elif config.loss_type == "vq":
+        raise ValueError("loss_type=vq requires a VQ architecture (--model VQVAE|FoldedVQVAE)")
     print(f"loading model '{config.arch}' for '{config.dataset_name}' dataset @ {config.image_size}px")
     model = build_model(
         config.arch,
@@ -178,6 +187,8 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         fused_reparam=config.fused,
         fold=config.fold,
         output_logit_bias=output_bias,
+        codebook_size=config.codebook_size,
+        vq_decay=config.vq_decay,
         seed=seed,
         device=dev,
     )
@@ -330,6 +341,7 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
             eval_stats = run_eval(loader_val, eval_set)
             duration_val = time.time() - t_start_val
             eval_stats["throughput"] = loader_val.num_samples / max(duration_val, 1e-9)
+            eval_stats.update(codebook_metrics(model))  # VQ models; {} otherwise
             print_epoch_summary("Evaluating", epoch, config.epochs, eval_stats, duration_val)
 
             # collapse alarm: 0 active units past the first epochs (KL warm-up
@@ -428,13 +440,18 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     print(f"\nEvaluating final model (epoch {last_epoch}) performance")
     print("\nEvaluating final model on test set...")
     test_stats = run_eval(loader_test, "Test")
-    if config.final_iwae or config.final_mig:
+    test_stats.update(codebook_metrics(model))  # VQ models; {} otherwise
+    is_vq = getattr(model, "latent_kind", "gaussian") == "vq"
+    if config.final_iwae and is_vq:
+        print("Skipping --final-iwae: the IWAE bound assumes a Gaussian posterior "
+              "(VQ-VAE reports reconstruction metrics + codebook perplexity instead)")
+    if (config.final_iwae and not is_vq) or config.final_mig:
         # the weights evaluation uses: the EMA averages when tracking is on
         eval_model = model
         if config.ema_decay is not None:
             eval_model = copy.deepcopy(model)
             eval_model.load_state_dict(state.ema_params, strict=False)
-        if config.final_iwae:
+        if config.final_iwae and not is_vq:
             # held-out density estimate (nats/sample), against the de-normalised
             # [0, 1] pixels whatever --bce-targets mode trained the run
             test_stats[f"iwae-{config.final_iwae}"] = iwae_bound(

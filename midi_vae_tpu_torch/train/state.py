@@ -8,8 +8,11 @@ wants them.
 
 With ``ema_decay`` the step also keeps an exponential moving average of
 the parameters (``TrainState.ema_params``), the weights evaluation and
-best-model selection then use. Not ported yet: ``grad_accum`` > 1, the
-β-TC and VQ objectives.
+best-model selection then use. With a VQ model (``loss_type="vq"``) the
+forward also updates the quantizer's EMA buffers, as it does BatchNorm's
+running statistics: they ride the state dict and the checkpoints, and the
+weights' EMA covers the parameters only, as the JAX package's does. Not
+ported yet: ``grad_accum`` > 1 and the β-TC objective.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.nn as nn
 from midi_vae_tpu_torch.core.rng import derive_step_seed
 from midi_vae_tpu_torch.core.types import LossOutput
 from midi_vae_tpu_torch.losses.elbo import elbo_loss
+from midi_vae_tpu_torch.losses.vq import vq_loss
 from midi_vae_tpu_torch.ops.fused_elbo import fused_elbo_terms
 from midi_vae_tpu_torch.train.optim import OptimizerBundle, set_step_hyperparams
 
@@ -125,10 +129,13 @@ def make_loss(
         raise ValueError("the fused BCE implements the unweighted reference formula; drop --fused for --bce-pos-weight")
     if target_denorm is not None and fused_loss:
         raise ValueError("the fused BCE consumes normalized targets; drop --fused for --bce-targets raw")
-    if loss_type != "elbo":
-        raise NotImplementedError(f"loss_type={loss_type!r} is not ported to the PyTorch package yet")
+    if loss_type == "beta-tc":
+        raise NotImplementedError("loss_type='beta-tc' is not ported to the PyTorch package yet (ROADMAP Queue 1 item 17)")
 
     def _loss(out, w: float) -> LossOutput:
+        if loss_type == "vq":
+            # the scheduled "KL weight" is the commitment β of this objective
+            return vq_loss(out, commitment_weight=w, pos_weight=pos_weight, target_denorm=target_denorm)
         if not fused_loss:
             return elbo_loss(
                 out,

@@ -6,7 +6,8 @@ latent 4, EMA on) writes the checkpoint they read.
 The parsers are held to the JAX package's flag for flag; each mode runs to
 completion with finite output in [0, 1], PNGs and readable ``.mid`` files
 written; flags of features not ported yet raise ``NotImplementedError``
-naming their ROADMAP item.
+naming their ROADMAP item, and the two-stage VQ flags refuse a Gaussian
+checkpoint (their own path is ``tests/test_torch_two_stage_cli.py``).
 """
 
 import json
@@ -127,16 +128,21 @@ def test_train_final_iwae_and_mig(tmp_path):
     assert any("eval/test/iwae-4" in row and "eval/test/mig" in row for row in rows)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--prior", "p.msgpack"], 13), (["--mode", "continue"], 13), (["--keep-cols", "4"], 13), (["--label", "1"], 17),
+@pytest.mark.parametrize("argv,error,match", [
+    (["--prior", "p.pt"], SystemExit, "VQVAE checkpoints only"),
+    (["--mode", "continue"], SystemExit, "needs --prior"),
+    (["--keep-cols", "4"], SystemExit, "--mode continue only"),
+    (["--label", "1"], NotImplementedError, "ROADMAP Queue 1 item 17\\b"),
 ], ids=["prior", "continue", "keep_cols", "label"])
-def test_unported_generate_flags_raise_with_their_roadmap_item(trained, argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\b"):
+def test_unported_generate_flags_raise_with_their_roadmap_item(trained, argv, error, match):
+    """--label (conditional models) is not ported; the two-stage flags are,
+    and refuse this Gaussian checkpoint as the JAX CLI does."""
+    with pytest.raises(error, match=match):
         generate.cli(["--checkpoint", trained["ckpt"], "--cpu"] + argv)
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"arch": "VQVAE"}, 12), ({"conditional": True}, 17), ({"torch_compat": True}, 17), ({"norm": "group"}, 17),
+    ({"arch": "VQVAE", "stem": "s2d"}, 17), ({"conditional": True}, 17), ({"torch_compat": True}, 17), ({"norm": "group"}, 17),
 ], ids=["vq", "conditional", "torch_compat", "norm"])
 def test_unported_checkpoints_raise_with_their_roadmap_item(trained, tmp_path, overrides, item):
     payload = load_checkpoint(trained["ckpt"])
@@ -148,7 +154,8 @@ def test_unported_checkpoints_raise_with_their_roadmap_item(trained, tmp_path, o
 
 
 def test_evaluate_codes_out_raises_with_its_roadmap_item(trained):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12\\b"):
+    """--codes-out is ported (tests/test_torch_two_stage_cli.py); a Gaussian checkpoint has no codes."""
+    with pytest.raises(SystemExit, match="Gaussian latent"):
         evaluate.cli(["--checkpoint", trained["ckpt"], "--cpu", "--codes-out", "codes.npz"])
 
 

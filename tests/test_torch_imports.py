@@ -39,9 +39,18 @@ _INFERENCE_MODULES = (
 )
 
 
+# the two-stage VQ path (the VQ-VAE, its objective, the code priors and their trainer)
+_TWO_STAGE_MODULES = ("cli/train_prior.py", "losses/vq.py", "models/prior.py", "models/vq.py")
+
+
 def test_inference_modules_are_among_the_guarded_sources():
     guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(_INFERENCE_MODULES) <= guarded
+
+
+def test_two_stage_modules_are_among_the_guarded_sources():
+    guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(_TWO_STAGE_MODULES) <= guarded
 
 
 def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():

@@ -313,9 +313,11 @@ BAD_REQUESTS = {
     "label_on_unconditional": ("/reconstruct", json.dumps({"images": np.zeros((1, 32, 32, 1)).tolist(),
                                                            "label": 1}).encode(), JSON_H, 400, "unconditional"),
     "temperature_without_prior": ("/sample", json.dumps({"n": 2, "temperature": 0.5}).encode(), JSON_H, 400,
-                                  "item 13"),
-    "top_p_without_prior": ("/sample", json.dumps({"n": 2, "top_p": 0.9}).encode(), JSON_H, 400, "item 13"),
-    "continue_not_ported": ("/continue", json.dumps({"images": [], "keep_cols": 1}).encode(), JSON_H, 400, "item 13"),
+                                  "no code prior attached"),
+    "top_p_without_prior": ("/sample", json.dumps({"n": 2, "top_p": 0.9}).encode(), JSON_H, 400,
+                            "no code prior attached"),
+    "continue_not_ported": ("/continue", json.dumps({"images": [], "keep_cols": 1}).encode(), JSON_H, 400,
+                            "needs a code prior"),
     "unknown_path": ("/nope", b"{}", JSON_H, 404, "unknown path"),
 }
 
@@ -457,21 +459,24 @@ def test_loader_prefers_ema_weights(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "call,item",
+    "call,error,match",
     [
-        (lambda p: server_mod.serve(artifact="dir"), 15),
-        (lambda p: server_mod.serve(p, prior="prior.msgpack", device="cpu"), 13),
-        (lambda p: server_mod.cli(["--artifact", "dir"]), 15),
-        (lambda p: server_mod.cli(["--checkpoint", p, "--prior", "x", "--cpu"]), 13),
-        (lambda p: server_mod.cli(["--checkpoint", p, "--compilation-cache", "/c", "--cpu"]), 17),
-        (lambda p: server_mod.InferenceService(p, prior_path="x", device="cpu"), 13),
+        (lambda p: server_mod.serve(artifact="dir"), NotImplementedError, "item 15"),
+        (lambda p: server_mod.serve(p, prior="prior.pt", device="cpu"), ValueError, "needs a VQ-VAE checkpoint"),
+        (lambda p: server_mod.cli(["--artifact", "dir"]), NotImplementedError, "item 15"),
+        (lambda p: server_mod.cli(["--checkpoint", p, "--prior", "x", "--cpu"]), ValueError, "needs a VQ-VAE"),
+        (lambda p: server_mod.cli(["--checkpoint", p, "--compilation-cache", "/c", "--cpu"]), NotImplementedError,
+         "item 17"),
+        (lambda p: server_mod.InferenceService(p, prior_path="x", device="cpu"), ValueError, "needs a VQ-VAE"),
     ],
     ids=["serve_artifact", "serve_prior", "cli_artifact", "cli_prior", "cli_compilation_cache", "service_prior"],
 )
-def test_unported_serving_options_raise_with_their_roadmap_item(tmp_path, call, item):
+def test_unported_serving_options_raise_with_their_roadmap_item(tmp_path, call, error, match):
+    """--artifact and --compilation-cache are not ported; --prior is, and
+    refuses this Gaussian checkpoint as the JAX server does."""
     path = str(tmp_path / "c.pt")
     _write_checkpoint(path, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\b"):
+    with pytest.raises(error, match=match):
         call(path)
 
 

@@ -169,7 +169,7 @@ def test_loss_matches_jax(fused, pos_weight, log_var_clamp):
         (dict(loss_type="beta-tc"), NotImplementedError),
         (dict(grad_accum=0), ValueError),
         (dict(grad_accum=2), NotImplementedError),
-        (dict(loss_type="vq"), NotImplementedError),
+        (dict(loss_type="vq", grad_accum=2), NotImplementedError),
     ],
 )
 def test_step_option_checks(kwargs, error):
