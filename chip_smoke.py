@@ -75,8 +75,29 @@ From the repository root. It
    and ``serve`` on the card with ``--prior``: /sample against the direct
    sampler and decoder, /continue, /healthz, latencies. The fused-ELBO
    kernels launch 0 times in all of it (the VQ objective refuses them);
-10. prints one ``{"kernels": [...]}`` line, the card line again, and as the
-   last line ``{"ok": true, "device": {...}}``.
+10. drives the training variants through the train CLI at full width:
+   ``configs/folded.yaml`` with ``--fused --grad-accum 2`` for one epoch
+   (K1, K2, K3 and K3's backward launch once per micro-batch, counted from
+   the run's forwards; one accumulated fused step against the unfused
+   step given the plain draws of both micro seeds; the step timed and
+   profiled at batch 100); ``configs/vq16_fold8.yaml`` with ``--grad-accum
+   2`` (the quantizer's buffers move); ``configs/beta_tc_vae.yaml`` for 2
+   of its 100 epochs (loss falls; the β-TC loss on the card against the
+   CPU, and MI, TC, DWKL); ``configs/conditional_mnist.yaml``'s model and
+   optimizer on ``vae-lines-large-synthetic`` at 128 px, fused, for 2
+   epochs, then ``generate --label``, the class sweep, ``evaluate``, and
+   ``serve`` with labels over both wires and under 16 threads of mixed
+   classes; a class-conditional prior over the VQ run served with a label;
+   MLPVAE at (512, 256), fused, card against CPU; each optimizer for one
+   epoch and AdamW under the cosine and step schedules (the logged LRs
+   against torch's schedulers, each step timed); last, K1, K2, K3 and K3's
+   backward against their plain versions at the shape and dtype of each
+   fused run (bf16 micro-batch of 50, f32 conditional batch of 128, f32
+   MLPVAE batch of 100). No fused-ELBO kernel launches on the β-TC, VQ and
+   optimizer runs;
+11. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
+   accumulated run, ``variant_launches`` for every run of item 10), the
+   card line again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
 without a CUDA device. TF32 is off for every comparison (cuDNN and
@@ -589,34 +610,37 @@ def reconstruct_phase(model, dev):
 
 def expected_cli_launches(r: dict, epochs: int) -> dict:
     """Kernel launches of a fused CLI run of ``epochs`` epochs, from the
-    forwards the run reports: K1, K2 and K3's backward once per train step;
-    K3's forward once per train step, once per reconstruction grid and once
-    per eval batch (the eval forward samples z, as the JAX package's does)."""
+    forwards the run reports: K1, K2 and K3's backward once per train
+    forward (one per step, or one per micro-batch under ``--grad-accum``);
+    K3's forward once per train forward, once per reconstruction grid and
+    once per eval batch (the eval forward samples z, as the JAX package's
+    does)."""
     f = r["forwards"]
     check(f["train_steps"] == r["steps_per_epoch"] * epochs,
           f"{f['train_steps']} train steps in {epochs} epochs of {r['steps_per_epoch']}")
-    steps = f["train_steps"]
-    return {"K1": steps, "K2": steps, "K3": steps + f["grid"] + f["eval_batches"], "K3-bwd": steps}
+    fwd = f["train_forwards"]
+    return {"K1": fwd, "K2": fwd, "K3": fwd + f["grid"] + f["eval_batches"], "K3-bwd": fwd}
 
 
 def log_cli_run(label: str, r: dict, card: str) -> None:
     c = r["corpus"]
+    batch = r["n_samples_seen"] // max(r["total_step"], 1)
     log(f"  {label}: corpus {c['train']} train / {c['val']} val / {c['test']} test windows, fetched in "
-        f"{r['timings']['fetch_s']:.3f} s; {r['steps_per_epoch']} steps per epoch at batch {CLI_BATCH}; run "
+        f"{r['timings']['fetch_s']:.3f} s; {r['steps_per_epoch']} steps per epoch at batch {batch}; run "
         f"{r['duration_total']:.3f} s [{card}]")
     for h in r["history"]:
         t = h["train"]
-        samples = r["steps_per_epoch"] * CLI_BATCH
+        samples = r["steps_per_epoch"] * batch
         phases = ", ".join(f"{k} {v:.3f} s" for k, v in t["phase_s"].items())
         log(f"    epoch {h['epoch']}: train loss {t['loss']:.6f}, {t['throughput']:.1f} samples/s "
             f"({samples / t['throughput']:.3f} s for {samples} samples; {phases}) [{card}]")
 
 
-def small_batch_steps(state, dev, card: str, batch: int = CLI_BATCH, n_steps: int = 20) -> None:
+def small_batch_steps(state, dev, card: str, batch: int = CLI_BATCH, n_steps: int = 20, grad_accum: int = 1) -> None:
     """The CLI's fused step at its batch, alone: the median of ``n_steps``
     steps closed by reading the loss, then a profile of three more (the
     device's busy share at this batch)."""
-    step = make_train_step(kl_weight_schedule("constant", KL_WEIGHT), fused_loss=True)
+    step = make_train_step(kl_weight_schedule("constant", KL_WEIGHT), fused_loss=True, grad_accum=grad_accum)
     data_gen = torch.Generator(device=dev).manual_seed(4)
     step_ms = []
     for _ in range(n_steps):
@@ -627,7 +651,8 @@ def small_batch_steps(state, dev, card: str, batch: int = CLI_BATCH, n_steps: in
         lo.loss.item()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(step_ms)
-    log(f"  fused step alone at batch {batch}: median {med:.3f} ms, min {min(step_ms):.3f} ms over {n_steps} steps "
+    accum = f", grad_accum {grad_accum} (micro-batches of {batch // grad_accum})" if grad_accum > 1 else ""
+    log(f"  fused step alone at batch {batch}{accum}: median {med:.3f} ms, min {min(step_ms):.3f} ms over {n_steps} steps "
         f"({batch / med * 1e3:.1f} samples/s) [{card}]")
     profile_steps(state, step, data_gen, 0, dev, med, batch=batch)
 
@@ -1261,6 +1286,488 @@ def vq_phase(dev, root: Path, card: str) -> dict:
     return counts
 
 
+# ================================================================ variants
+
+
+ACCUM = 2  # --grad-accum of the accumulated runs: micro-batches of 50 at the CLI's batch of 100
+BETA_TC_CONFIG = "configs/beta_tc_vae.yaml"
+BETA_TC_EPOCHS = 2  # of the config's 100
+CONDITIONAL_CONFIG = "configs/conditional_mnist.yaml"
+CONDITIONAL_DATASET = "vae-lines-large-synthetic"  # labels = line counts; MNIST is not in the repo
+CONDITIONAL_EPOCHS = 2  # of the config's 5
+CONDITIONAL_BATCH = 128  # the config's batch_size_per_device
+OPTIMIZERS = ("Adam", "SGD", "RMSprop", "Adagrad", "LAMB", "Lion")
+MLP_HIDDEN = ("512", "256")  # MLPVAE's own default widths
+# the rate of the repo's midi configs: at the CLI's default 0.01 a one-epoch (7-step) OneCycle peaks at its
+# second step and the KL blows up, in both packages alike; 1 epoch of the CLI's 5 keeps the 5-epoch horizon
+MLP_LR, MLP_EPOCHS = "0.00128", "5"
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def timed_step(label: str, state, step, batch: int, dev, card: str, y=None, n: int = 12) -> None:
+    """A train step alone on fresh on-device rolls: the median of the last
+    ``n`` − 2 of ``n`` steps, each closed by reading the loss, and its
+    device time and kernels (profile of 3 more)."""
+    data_gen = torch.Generator(device=dev).manual_seed(15)
+    cur = [state]
+
+    def one():
+        x, _ = make_pianoroll_batch(data_gen, batch, device=dev)
+        cur[0], lo, _ = step(cur[0], x, 0, y=y)
+        return lo
+
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        one().loss.item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(ms[2:])
+    dev_ms, kernels = device_ms_per_call(one, dev, n=3)
+    log(f"  {label} step alone at batch {batch}: median {med:.3f} ms over {n - 2} ({batch / med * 1e3:.1f} samples/s); "
+        f"device busy {dev_ms:.3f} ms/step ({dev_ms / med:.1%}, {kernels:.0f} kernels and copies) [{card}]")
+
+
+def fused_run(argv: list, epochs: int, label: str, card: str) -> tuple:
+    """A fused train-CLI run with its launch counts held to its forwards.
+    Returns (results, counts)."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+
+    ops.reset_launch_counts()
+    r = train_cli.cli(argv)
+    counts = ops.launch_counts()
+    log_cli_run(label, r, card)
+    want = expected_cli_launches(r, epochs)
+    log(f"  launches {counts}, expected {want} (forwards {r['forwards']})")
+    check(counts == want, f"{label}: launched {counts}, expected {want}")
+    return r, counts
+
+
+def unfused_run(argv: list, label: str, card: str) -> dict:
+    """A train-CLI run on a path that runs no fused-ELBO kernel: 0 launches."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+
+    ops.reset_launch_counts()
+    r = train_cli.cli(argv)
+    log_cli_run(label, r, card)
+    counts = ops.launch_counts()
+    check(counts == {k: 0 for k in ops.KERNEL_WRAPPERS}, f"{label}: launched a fused-ELBO kernel: {counts}")
+    return r
+
+
+def kernels_at_run_shapes(dev, shapes: dict) -> dict:
+    """K1/K2 on [B, 128, 128, 1] logits and K3 with its backward on [B, 10],
+    at each (B, dtype) a run of this phase launched them with (``shapes``:
+    label → (B, dtype)), against their plain versions at the limits used
+    above; returns the max errors over all of them."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    errs = {key: 0.0 for key in KERNEL_INFO}
+    for label, (b, dtype) in shapes.items():
+        what = f"{label} [{b},128,128,1] {str(dtype).removeprefix('torch.')}"
+        logits = (3.0 * torch.randn((b, 128, 128, 1), generator=gen, device=dev)).to(dtype)
+        targets, _ = make_pianoroll_batch(gen, b, device=dev)
+        e1, e2 = check_bce(logits, targets - 0.5, torch.full((), 2.5, device=dev), f"{what} logits, f32 targets")
+        mu = torch.randn((b, 10), generator=gen, device=dev).to(dtype)
+        lv = (0.3 * torch.randn((b, 10), generator=gen, device=dev)).to(dtype)
+        what = f"{label} [{b},10] {str(dtype).removeprefix('torch.')}"
+        e3 = check_k3(mu, lv, 21, what)
+        z, _ = ops.reparam_kl(mu, lv, 21)
+        g_z = torch.randn((b, 10), generator=gen, device=dev).to(dtype)
+        e4 = max(check_k3_grad(mu, lv, z, g_z, g_kl, f"{what}, {kl}")
+                 for g_kl, kl in ((None, "no g_kl"), (torch.full((), 5.0, device=dev), "g_kl 5")))
+        for key, e in zip(("K1", "K2", "K3", "K3-bwd"), (e1, e2, e3, e4)):
+            errs[key] = max(errs[key], e)
+    return errs
+
+
+def run_shape(r: dict, batch: int) -> tuple:
+    """(batch, dtype) a fused train run launched its kernels with, after
+    checking its model has the 128-px, 10-latent shapes
+    :func:`kernels_at_run_shapes` holds the kernels at."""
+    model = r["state"].model
+    check(model.input_dim == 128 and model.latent_dim == 10,
+          f"{type(model).__name__}: input {model.input_dim}, latent {model.latent_dim}; the kernel checks assume 128, 10")
+    return batch, model.dtype
+
+
+def accum_step_vs_unfused(dev) -> None:
+    """One fused grad_accum = 2 step of the flagship FoldedVAE at batch 100
+    against the same step unfused, given the plain draws of its two micro
+    seeds: the losses agree within 1e-3 relative."""
+    from midi_vae_tpu_torch.core.rng import derive_micro_seed
+
+    model = build_model("FoldedVAE", dtype=torch.bfloat16, fused_reparam=True, seed=0, device=dev, **FLAGSHIP)
+    ref = copy.deepcopy(model)
+    x, _ = make_pianoroll_batch(torch.Generator(device=dev).manual_seed(10), CLI_BATCH, device=dev)
+    kl = kl_weight_schedule("constant", KL_WEIGHT)
+    _, lo, _ = make_train_step(kl, fused_loss=True, grad_accum=ACCUM)(
+        create_train_state(model, build_optimizer(model, param_group_label, **OPTIMIZER)), x, 0)
+    m = CLI_BATCH // ACCUM
+    eps = [ops.k3_eps_plain((m, FLAGSHIP["latent_dim"]), derive_micro_seed(derive_step_seed(0, 0), i), dev)
+           for i in range(ACCUM)]
+    _, ref_lo, _ = make_train_step(kl, fused_loss=False, grad_accum=ACCUM)(
+        create_train_state(ref, build_optimizer(ref, param_group_label, **OPTIMIZER)), x, 0, eps=eps)
+    rel = abs(lo.loss.item() - ref_lo.loss.item()) / abs(ref_lo.loss.item())
+    log(f"  grad_accum {ACCUM} step at batch {CLI_BATCH}: fused loss {lo.loss.item():.7f} vs unfused with the plain "
+        f"draws of both micro seeds {ref_lo.loss.item():.7f}: rel {rel:.2e}")
+    check(rel <= 1e-3, "fused and unfused accumulated first-step losses differ")
+
+
+def vq_accum_run(root: Path, models: Path, card: str) -> None:
+    """configs/vq16_fold8.yaml with --grad-accum 2 for one epoch: finite
+    loss, the quantizer's three EMA buffers moved from their initial values
+    (captured as the train loop builds the model), no kernel launched."""
+    import midi_vae_tpu_torch.train.loop as loop_mod
+
+    initial, real = {}, loop_mod.build_model
+
+    def capture(*args, **kwargs):
+        model = real(*args, **kwargs)
+        initial.update({n: b.detach().clone() for n, b in model.named_buffers() if n.startswith("quantizer.")})
+        return model
+
+    loop_mod.build_model = capture
+    try:
+        r = unfused_run(["--config", str(root / VQ_CONFIG), "--grad-accum", str(ACCUM), "--stop-after-epochs", "1",
+                         "--seed", "0", "--models-dir", str(models), "--run-name", "vq16", "--run-id", "accum"],
+                        f"{VQ_CONFIG} --grad-accum {ACCUM}, epoch 1 of 60", card)
+    finally:
+        loop_mod.build_model = real
+    trained = dict(r["state"].model.named_buffers())
+    moved = {n: not torch.equal(b, trained[n]) for n, b in initial.items()}
+    check(len(moved) == 3 and all(moved.values()), f"quantizer buffers unchanged: {moved}")
+    check(math.isfinite(r["train"]["loss"]) and r["forwards"]["train_forwards"] == ACCUM * r["forwards"]["train_steps"],
+          f"VQ accumulated run: loss {r['train']['loss']}, forwards {r['forwards']}")
+    log(f"  train loss {r['train']['loss']:.6f}; {r['forwards']['train_forwards']} micro forwards in "
+        f"{r['forwards']['train_steps']} steps; quantizer buffers moved: {sorted(moved)}; final test codebook "
+        f"perplexity {r['final_test']['codebook-perplexity']:.2f}, active codes {r['final_test']['active-codes']}")
+
+
+def beta_tc_run(root: Path, models: Path, dev, card: str) -> None:
+    """configs/beta_tc_vae.yaml as written for 2 of its 100 epochs: the loss
+    is finite and falls, no kernel launches; then on one batch on the card,
+    with eps injected, the β-TC loss against the same model on the CPU
+    (1e-5 relative), and MI, TC and DWKL on both."""
+    from midi_vae_tpu_torch.cli.generate import _fetch_eval_batch
+    from midi_vae_tpu_torch.losses.tcvae import tc_decomposition
+    from midi_vae_tpu_torch.train.state import make_loss
+
+    r = unfused_run(["--config", str(root / BETA_TC_CONFIG), "--stop-after-epochs", str(BETA_TC_EPOCHS), "--seed", "0",
+                     "--models-dir", str(models), "--run-name", "betatc", "--run-id", "1"],
+                    f"{BETA_TC_CONFIG} as written (VanillaVAE, f32), epochs 1-{BETA_TC_EPOCHS} of 100", card)
+    losses = [h["train"]["loss"] for h in r["history"]]
+    check(len(losses) == BETA_TC_EPOCHS and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"β-TC train loss did not fall: {losses}")
+    x, _, _ = _fetch_eval_batch("midi-synthetic", None, 128, CLI_BATCH, {"transform_type": "pianoroll"}, dev)
+    eps = torch.randn((x.shape[0], 10), generator=torch.Generator().manual_seed(11))
+    loss_fn = make_loss(loss_type="beta-tc", tc_beta=6.0, dataset_size=r["corpus"]["train"])
+    got = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = copy.deepcopy(r["state"].model).to(d)
+        with torch.no_grad():
+            out = model(x.to(d), train=True, eps=eps.to(d))
+            lo = loss_fn(out, 1.0)
+            terms = tc_decomposition(out.latents, out.encoded.mu, out.encoded.log_var, r["corpus"]["train"])
+        got[where] = [float(lo.loss)] + [float(t) for t in terms]
+    rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    log(f"  epoch losses {losses}; one batch of {x.shape[0]}, eps injected, card vs CPU: loss {got['card'][0]:.7f} vs "
+        f"{got['cpu'][0]:.7f} (rel {rel:.2e}); MI {got['card'][1]:.5f} / {got['cpu'][1]:.5f}, TC {got['card'][2]:.5f} / "
+        f"{got['cpu'][2]:.5f}, DWKL {got['card'][3]:.5f} / {got['cpu'][3]:.5f} nat [{card}]")
+    check(rel <= 1e-5, "β-TC loss on the card disagrees with the CPU")
+    timed_step("β-TC (f32)", r["state"], make_train_step(kl_weight_schedule("constant", 1.0), loss_type="beta-tc",
+                                                        tc_beta=6.0, dataset_size=r["corpus"]["train"]),
+               CLI_BATCH, dev, card)
+
+
+def conditional_serve(best: Path, dev, card: str) -> None:
+    """generate --label and the per-class sweep, evaluate with IWAE, and
+    serve with labels over both wires on the conditional run's best model:
+    served answers within 1e-4 of the model on the card; 16 threads of
+    mixed-label requests all answered correctly and coalesced."""
+    import numpy as np
+
+    from midi_vae_tpu_torch.cli import evaluate as evaluate_cli
+    from midi_vae_tpu_torch.cli import generate as generate_cli
+    from midi_vae_tpu_torch.cli.generate import _fetch_eval_batch, _load_model_and_state
+    from midi_vae_tpu_torch.evaluation.inference import interpolate, sample_prior
+    from midi_vae_tpu_torch.serving.client import ServingClient
+    from midi_vae_tpu_torch.serving.server import serve
+
+    model, cfg, size, _, dataset = _load_model_and_state(str(best), device=dev)
+    classes = model.num_classes
+    out = best.parent
+    one = generate_cli.cli(["--checkpoint", str(best), "--mode", "sample", "-n", "8", "--label", "1",
+                            "--out", str(out / "label1.png")])
+    sweep = generate_cli.cli(["--checkpoint", str(best), "--mode", "sample", "-n", str(2 * classes),
+                              "--out", str(out / "sweep.png")])
+    with torch.inference_mode():
+        want_one = sample_prior(model, 8, 0, y=torch.full((8,), 1, device=dev)).cpu().numpy()
+        want_sweep = sample_prior(model, 2 * classes, 0, y=torch.arange(2 * classes, device=dev) % classes).cpu().numpy()
+    err = max(float(np.abs(one - want_one).max()), float(np.abs(sweep - want_sweep).max()))
+    check(err <= 1e-6, f"generate --label / the class sweep vs sample_prior: {err}")
+    res = evaluate_cli.cli(["--checkpoint", str(best), "--partition", "test", "--iwae-samples", "8", "--mig"])["test"]
+    check(all(math.isfinite(res[k]) for k in ("cross-entropy", "kl", "iwae-8", "mig")), f"evaluate: {res}")
+    log(f"  {classes} classes; generate --label 1 (8 samples) and the {2 * classes}-sample class sweep equal "
+        f"sample_prior under those labels (max |err| {err:.1e}); evaluate: cross-entropy {res['cross-entropy']:.6f}, "
+        f"kl {res['kl']:.5f}, iwae-8 {res['iwae-8']:.4f} nat/sample, mig {res['mig']:.5f} [{card}]")
+
+    x_dev, y_dev, _ = _fetch_eval_batch(dataset, None, size, 16, cfg, dev)
+    x, y = x_dev.cpu().numpy(), y_dev.cpu().numpy().astype(np.int32)
+    httpd = serve(str(best), port=0)
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        health = ServingClient(url).healthz()
+        check(health["conditional"] and health["num_classes"] == classes, f"/healthz: {health}")
+        yt = torch.from_numpy(y[:5]).long().to(dev)
+        with torch.inference_mode():
+            enc = model.encode(x_dev[:5], train=False, y=yt)
+            direct = {"reconstruct": model.decode(enc.mu, train=False, y=yt).cpu().numpy(),
+                      "encode": torch.cat([enc.mu, enc.log_var], -1).cpu().numpy(),
+                      "interpolate": interpolate(model, x_dev[:1], x_dev[1:2], steps=8, y=yt[:1])[:, 0].cpu().numpy(),
+                      "sample": sample_prior(model, 16, 3, y=torch.arange(16, device=dev) % classes).cpu().numpy()}
+        errs = {}
+        for wire in ("npy", "json"):
+            c = ServingClient(url, wire=wire)
+            got = {"reconstruct": c.reconstruct(x[:5], labels=y[:5]),
+                   "encode": np.concatenate(c.encode(x[:5], labels=y[:5]), axis=1),
+                   "interpolate": c.interpolate(x[0], x[1], steps=8, labels=int(y[0])),
+                   "sample": c.sample(16, 3, labels=np.arange(16) % classes)}
+            for key, want in direct.items():
+                check(got[key].shape == want.shape, f"served {key} ({wire}): shape {got[key].shape}")
+                errs[(wire, key)] = float(np.abs(got[key] - want).max())
+        log("  served with labels vs the model on the card, max |err|: " + "; ".join(
+            f"{w} {k} {e:.3e}" for (w, k), e in errs.items()) + f" [{card}]")
+        check(max(errs.values()) <= 1e-4, f"served outputs with labels disagree: {errs}")
+
+        before = ServingClient(url).healthz()
+        rng = np.random.default_rng(1)
+        plan = [[(int(s), int(n), int(k)) for s, n, k in zip(rng.integers(0, 12, SERVE_REQUESTS),
+                                                             rng.integers(1, 5, SERVE_REQUESTS),
+                                                             rng.integers(0, classes, SERVE_REQUESTS))]
+                for _ in range(SERVE_THREADS)]
+        with torch.inference_mode():
+            want = {}
+            for reqs in plan:
+                for s, n, k in reqs:
+                    yk = torch.full((n,), k, device=dev)
+                    want[(s, n, k)] = model.decode(model.encode(x_dev[s:s + n], y=yk).mu, y=yk).cpu().numpy()
+        errors = []
+
+        def worker(reqs):
+            c = ServingClient(url)
+            try:
+                for s, n, k in reqs:
+                    if float(np.abs(c.reconstruct(x[s:s + n], labels=k) - want[(s, n, k)]).max()) > 1e-4:
+                        errors.append(f"request ({s}, {n}, class {k}): wrong answer")
+            except Exception as e:  # noqa: BLE001 - every failure is reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=worker, args=(reqs,)) for reqs in plan]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        after = ServingClient(url).healthz()
+        served_n = after["requests_served"] - before["requests_served"]
+        batches = after["batches_dispatched"] - before["batches_dispatched"]
+        check(not errors and served_n == SERVE_THREADS * SERVE_REQUESTS and batches < served_n,
+              f"mixed-label load: {errors[:5]}, {served_n} requests in {batches} batches")
+        log(f"  /reconstruct with labels under load, {SERVE_THREADS} threads x {SERVE_REQUESTS} requests of 1-4 rolls, "
+            f"classes mixed: all {served_n} correct, {batches} device batches ({served_n / batches:.2f} requests per "
+            f"batch) [{card}]")
+
+        client, one, label = ServingClient(url), x[:1], y[:1]
+        timed(lambda: client.reconstruct(one, labels=label), 10)
+        seq = timed(lambda: client.reconstruct(one, labels=label), SEQUENTIAL_REQUESTS)
+        device, n_kernels = device_ms_per_call(lambda: httpd.service._reconstruct_rows(one, label), dev)
+        log(f"  /reconstruct with a label, 1 roll, npy, sequential ({SEQUENTIAL_REQUESTS} after 10 warm-up): p50 "
+            f"{quantile_ms(seq, 50):.3f} ms, p99 {quantile_ms(seq, 99):.3f} ms; its dispatch on the device "
+            f"{device:.4f} ms ({n_kernels:.0f} kernels and copies) [{card}]")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.service.close()
+
+
+def conditional_prior(root: Path, vq_best: Path, card: str) -> None:
+    """train_prior --conditional (the config's transformer, 1 epoch) over
+    the VQ phase's checkpoint, served with a label: /sample equals the
+    direct sampler under that label for its seed."""
+    import numpy as np
+
+    from midi_vae_tpu_torch.cli import train_prior
+    from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
+    from midi_vae_tpu_torch.serving.client import ServingClient
+    from midi_vae_tpu_torch.serving.server import serve
+
+    path = vq_best.parent / "prior_conditional.pt"
+    path.unlink(missing_ok=True)  # trained from scratch, not resumed
+    p = train_prior.cli(["--config", str(root / VQ_CONFIG), "--checkpoint", str(vq_best), "--conditional",
+                         "--augment-passes", "0", "--epochs", "1", "--out", str(path)])
+    httpd = serve(str(vq_best), port=0, prior=str(path))
+    try:
+        service = httpd.service
+        classes = service.prior_info["num_classes"]
+        check(classes >= 1 and math.isfinite(p["history"][0]["nll"]), f"conditional prior: {classes} classes, {p}")
+        client = ServingClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+        got = client.sample(SAMPLE_N, 3, labels=classes - 1)
+        with torch.inference_mode():
+            idx = sample_codes_autoregressive(service.prior, 3, SAMPLE_N, service.model.last_conv_size,
+                                              y=[classes - 1] * SAMPLE_N)
+            want = service.model.decode_indices(idx).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        check(err <= 1e-4, f"/sample with a label vs the direct sampler: {err}")
+        log(f"  class-conditional transformer prior over {classes} class(es) (1 epoch, nll "
+            f"{p['history'][0]['nll']:.4f}): /sample n={SAMPLE_N} label {classes - 1} vs the direct sampler, same "
+            f"seed: max |err| {err:.3e} [{card}]")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.service.close()
+
+
+def mlp_card_vs_cpu(r: dict, dev, card: str) -> None:
+    """The trained MLPVAE on the card against the same weights on the CPU,
+    f32, batch 16, eps injected: logits within 1e-4."""
+    model = copy.deepcopy(r["state"].model).float()
+    cpu = copy.deepcopy(model).cpu()
+    x, _ = make_pianoroll_batch(torch.Generator(device=dev).manual_seed(12), 16, device=dev)
+    eps = torch.randn((16, model.latent_dim), generator=torch.Generator().manual_seed(13))
+    with torch.no_grad():
+        err = float((model(x, train=True, eps=eps.to(dev)).logits.cpu()
+                     - cpu(x.cpu(), train=True, eps=eps).logits).abs().max())
+    log(f"  MLPVAE (hidden {model.hidden_dims}) card vs CPU, f32 batch 16: logits max |err| {err:.3e} [{card}]")
+    check(err <= 1e-4, "MLPVAE on the card disagrees with the CPU")
+
+
+def reference_lrs(scheduler: str, lr: float, total: int) -> list:
+    """The LR before each of ``total`` steps from torch's own schedulers
+    (OneCycleLR, CosineAnnealingLR, StepLR at the JAX package's step size
+    1000 and γ 0.1), in f64: the yardstick of the logged LRs. The JAX
+    package's OneCycle holds its warm-up to at least one step, which is
+    torch's whenever 0.3·total ≥ 2 (total = 7 here)."""
+    check(scheduler.lower() != "onecycle" or 0.3 * total >= 2, f"OneCycle over {total} steps: no yardstick")
+    opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=lr)
+    sched = {
+        "onecycle": lambda: torch.optim.lr_scheduler.OneCycleLR(opt, max_lr=lr, total_steps=total, cycle_momentum=False),
+        "cosine": lambda: torch.optim.lr_scheduler.CosineAnnealingLR(opt, T_max=total),
+        "step": lambda: torch.optim.lr_scheduler.StepLR(opt, step_size=1000, gamma=0.1),
+    }[scheduler.lower()]()
+    lrs = []
+    for _ in range(total):
+        lrs.append(opt.param_groups[0]["lr"])
+        opt.step()
+        sched.step()
+    return lrs
+
+
+def optimizer_runs(root: Path, models: Path, dev, card: str) -> None:
+    """One epoch of configs/folded.yaml (unfused) with each optimizer, and
+    AdamW under the cosine and step schedules: finite loss, every logged LR
+    within 1e-5 of torch's own scheduler, no kernel launched; then each
+    step alone at batch 100 (:func:`timed_step`)."""
+    from midi_vae_tpu_torch.data.transforms import get_transform
+    from midi_vae_tpu_torch.train.config import from_yaml
+    from midi_vae_tpu_torch.train.optim import scale_lr
+
+    spec, _ = get_transform("pianoroll", 128, {"normalization": "midi-synthetic"})
+    runs = [(name, "OneCycle") for name in OPTIMIZERS] + [("AdamW", "cosine"), ("AdamW", "step")]
+    for name, scheduler in runs:
+        run_id = f"{name}-{scheduler}"
+        r = unfused_run(["--config", str(root / "configs" / "folded.yaml"), "--optimizer", name, "--scheduler", scheduler,
+                         "--epochs", "1", "--log-interval", "1", "--print-interval", "100", "--seed", "0",
+                         "--models-dir", str(models),
+                         "--run-name", "opt", "--run-id", run_id],
+                        f"configs/folded.yaml, {name} under {scheduler}, 1 epoch", card)
+        check(math.isfinite(r["train"]["loss"]) and math.isfinite(r["final_test"]["cross-entropy"]),
+              f"{run_id}: loss {r['train']['loss']}")
+        rows = [json.loads(line) for line in (models / "midi-synthetic" / f"opt__{run_id}" / "metrics.jsonl")
+                .read_text().splitlines()]
+        logged = [(row["step"], row["training/stepwise/lr-decoder"]) for row in rows
+                  if "training/stepwise/lr-decoder" in row]
+        cfg = from_yaml(str(root / "configs" / "folded.yaml"))
+        want = reference_lrs(scheduler, scale_lr(cfg.lr_relative, CLI_BATCH) * cfg.lr_decoder_mult, r["steps_per_epoch"])
+        worst = max(abs(v - want[s - 1]) / want[s - 1] for s, v in logged)
+        check(logged and worst <= 1e-5, f"{run_id}: logged LRs {logged} vs torch's scheduler {want}")
+
+        log(f"  {name} under {scheduler}: train loss {r['train']['loss']:.6f}, {len(logged)} logged LRs within "
+            f"{worst:.1e} of torch's scheduler")
+        step = make_train_step(kl_weight_schedule("constant", 2.5e-4), target_denorm=(tuple(spec.mean), tuple(spec.std)))
+        timed_step(f"{name} ({scheduler})", r["state"], step, CLI_BATCH, dev, card)
+
+
+def variants_phase(dev, root: Path, card: str) -> tuple:
+    """The training variants (module docstring, item 10). Returns (the
+    accumulated fused run's launches, the launches of every run of the
+    phase, the max kernel errors at the fused runs' shapes)."""
+    t_phase = time.perf_counter()
+    models = root / "build" / "variant_models"
+    shutil.rmtree(models, ignore_errors=True)
+    config = str(root / "configs" / "folded.yaml")
+    total: dict = {}
+
+    log(f"  grad_accum {ACCUM}, fused (configs/folded.yaml):")
+    r, accum = fused_run(["--config", config, "--fused", "--bce-targets", "normalized", "--grad-accum", str(ACCUM),
+                          "--epochs", "1", "--seed", "0", "--models-dir", str(models), "--run-name", "accum",
+                          "--run-id", "fused"], 1, f"--grad-accum {ACCUM} --fused, 1 epoch", card)
+    check(r["forwards"]["train_forwards"] == ACCUM * r["forwards"]["train_steps"], f"forwards {r['forwards']}")
+    check(math.isfinite(r["train"]["loss"]), f"accumulated run: loss {r['train']['loss']}")
+    add_counts(total, accum)
+    shapes = {"micro-batch": run_shape(r, CLI_BATCH // ACCUM)}
+    accum_step_vs_unfused(dev)
+    small_batch_steps(r["state"], dev, card, grad_accum=ACCUM)
+
+    log(f"  grad_accum {ACCUM}, VQ ({VQ_CONFIG}):")
+    vq_accum_run(root, models, card)
+
+    log(f"  β-TC ({BETA_TC_CONFIG}):")
+    beta_tc_run(root, models, dev, card)
+
+    log(f"  conditional ({CONDITIONAL_CONFIG}'s model and optimizer on {CONDITIONAL_DATASET}, fused):")
+    r, counts = fused_run(["--config", str(root / CONDITIONAL_CONFIG), "--dataset", CONDITIONAL_DATASET,
+                           "--image-size", "128", "--transform-type", "noaug", "--fused", "--save-best-model",
+                           "--stop-after-epochs", str(CONDITIONAL_EPOCHS), "--seed", "0", "--models-dir", str(models),
+                           "--run-name", "cond", "--run-id", "fused"], CONDITIONAL_EPOCHS,
+                          f"conditional VanillaVAE, epochs 1-{CONDITIONAL_EPOCHS} of 5", card)
+    add_counts(total, counts)
+    shapes["conditional batch"] = run_shape(r, CONDITIONAL_BATCH)
+    losses = [h["train"]["loss"] for h in r["history"]]
+    check(r["state"].model.num_classes > 1 and losses[-1] < losses[0], f"conditional run: losses {losses}")
+    labels = torch.arange(CONDITIONAL_BATCH, device=dev) % r["state"].model.num_classes
+    timed_step("conditional fused (f32)", r["state"], make_train_step(kl_weight_schedule("constant", 1.0),
+                                                                    fused_loss=True), CONDITIONAL_BATCH, dev, card,
+               y=labels)
+    conditional_serve(models / CONDITIONAL_DATASET / "cond__fused" / "best_model.pt", dev, card)
+    conditional_prior(root, root / "build" / "vq_models" / "midi-synthetic" / "vq16__stage1" / "best_model.pt", card)
+
+    log(f"  MLPVAE (hidden {' '.join(MLP_HIDDEN)}, midi-synthetic, fused):")
+    r, counts = fused_run(["--dataset", "midi-synthetic", "--transform-type", "pianoroll", "--image-size", "128",
+                           "--model", "MLPVAE", "--hidden-dims", *MLP_HIDDEN, "--fused", "--bce-targets", "normalized",
+                           "--batch-size", str(CLI_BATCH), "--lr", MLP_LR, "--epochs", MLP_EPOCHS, "--stop-after-epochs",
+                           "1", "--seed", "0", "--models-dir", str(models), "--run-name", "mlp", "--run-id", "fused"],
+                          1, f"MLPVAE --fused, epoch 1 of {MLP_EPOCHS}", card)
+    add_counts(total, counts)
+    shapes["MLPVAE batch"] = run_shape(r, CLI_BATCH)
+    check(math.isfinite(r["train"]["loss"]), f"MLPVAE run: loss {r['train']['loss']}")
+    mlp_card_vs_cpu(r, dev, card)
+    timed_step("MLPVAE fused (f32)", r["state"], make_train_step(kl_weight_schedule("constant", 1.0), fused_loss=True),
+               CLI_BATCH, dev, card)
+
+    log("  optimizers and schedules (configs/folded.yaml as written, unfused):")
+    optimizer_runs(root, models, dev, card)
+
+    log("  K1, K2, K3 and K3's backward at the fused runs' shapes and dtypes, against their plain versions:")
+    errs = kernels_at_run_shapes(dev, shapes)
+
+    log(f"  launches: accumulated run {accum}; every run of the phase {total}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return accum, total, errs
+
+
 # ==================================================================== main
 
 
@@ -1299,6 +1806,8 @@ def main() -> int:
     serve_phase(dev, root, card)
     log(f"two-stage VQ path ({VQ_CONFIG}):")
     vq_counts = vq_phase(dev, root, card)
+    log("training variants (grad_accum, β-TC, conditional, MLPVAE, optimizers):")
+    accum_counts, variant_counts, variant_errs = variants_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -1313,7 +1822,9 @@ def main() -> int:
                 "launches": counts[key],
                 "cli_launches": cli_counts[key],
                 "vq_launches": vq_counts[key],
-                "max_abs_err": errs[key],
+                "accum_launches": accum_counts[key],
+                "variant_launches": variant_counts[key],
+                "max_abs_err": max(errs[key], variant_errs[key]),
                 "ms": ms,
                 "device_ms": device_ms[key],
                 "plain_ms": plain_ms,

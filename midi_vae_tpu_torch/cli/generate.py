@@ -20,9 +20,10 @@ config as the JAX package builds it for inference: in f32 whatever
 kernel of ``ops/fused_elbo.py`` runs here. A VQ checkpoint's ``--mode
 sample`` without ``--prior`` draws codes from the EMA usage marginal;
 ``--mode continue`` keeps the first ``--keep-cols`` code-grid time columns
-of real rolls and lets the prior write the rest. ``--label`` steers a
-class-conditional prior; for conditional VAEs it raises
-``NotImplementedError`` (ROADMAP item 17).
+of real rolls and lets the prior write the rest. ``--label`` picks the
+class of a conditional checkpoint (``--conditional`` run) or of a
+class-conditional prior; without it ``--mode sample`` cycles the classes
+(one class per grid column) and the other modes use the batch labels.
 """
 
 from __future__ import annotations
@@ -59,9 +60,10 @@ def get_parser() -> argparse.ArgumentParser:
                         help="Use the raw (non-averaged) parameters even when the checkpoint carries EMA "
                              "weights. Default: EMA weights are preferred when present.")
     parser.add_argument("--label", type=int, default=None,
-                        help="Class-conditional code priors (train_prior --conditional): generate this class. "
-                             "Default for --mode sample: one class per grid column. Conditional checkpoints "
-                             "are not ported yet (ROADMAP item 17)")
+                        help="Conditional checkpoints (--conditional runs) or class-conditional "
+                             "code priors (train_prior --conditional): generate this class. "
+                             "Default for --mode sample: cycle the classes (one column "
+                             "per class in the grid); other modes use the fetched batch labels.")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the GPU")
     parser.add_argument("--prior", type=str, default=None,
                         help="VQ-VAE checkpoints, --mode sample/continue: a trained code prior "
@@ -83,15 +85,9 @@ def _refuse(gaps) -> None:
             raise NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 item {item})")
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Refuse the flags of features the port does not have yet."""
-    _refuse([(args.label is not None and args.prior is None, "--label (conditional models)", 17)])
-
-
 def _check_checkpoint_ported(cfg: dict) -> None:
     """Refuse checkpoints of models the port does not have yet."""
     _refuse([
-        (bool(cfg.get("conditional")), "a conditional checkpoint", 17),
         (bool(cfg.get("torch_compat")), "a torch_compat checkpoint", 17),
         (cfg.get("stem", "conv") != "conv" or cfg.get("head", "deconv") != "deconv", "stem s2d / head d2s", 17),
         ((cfg.get("norm") or "batch") != "batch", f"norm {cfg.get('norm')}", 17),
@@ -125,6 +121,7 @@ def _load_model_and_state(checkpoint_path: str, use_ema: bool = True, payload=No
         fold=int(cfg.get("fold", 4)),
         codebook_size=int(cfg.get("codebook_size") or 512),
         vq_decay=float(cfg.get("vq_decay") or 0.99),
+        num_classes=int(cfg.get("num_classes") or 0) if cfg.get("conditional") else 0,
         device=device,
     )
     state = payload["state"]
@@ -188,7 +185,7 @@ def _export_midi(rolls: np.ndarray, out_dir: str, threshold: float = 0.1) -> lis
     return paths
 
 
-def _resolve_export_threshold(args, model, cfg, dataset, data_dir, image_size, seed: int, device) -> float:
+def _resolve_export_threshold(args, model, cfg, dataset, data_dir, image_size, seed: int, device, labels_for) -> float:
     """--export-threshold: a fixed float, or 'auto' = calibrated on the
     checkpoint's own reconstructions of the eval partition (midi/calibrate.py)."""
     if args.export_threshold is None:
@@ -201,8 +198,8 @@ def _resolve_export_threshold(args, model, cfg, dataset, data_dir, image_size, s
     from midi_vae_tpu_torch.midi.calibrate import calibrate_export_threshold
 
     n_cal = 256  # enough rolls for stable duration/density histograms
-    x, _, spec = _fetch_eval_batch(dataset, data_dir, image_size, n_cal, cfg, device)
-    recon = reconstruct(model, x, seed)
+    x, yb, spec = _fetch_eval_batch(dataset, data_dir, image_size, n_cal, cfg, device)
+    recon = reconstruct(model, x, seed, y=labels_for(yb, x.shape[0]))
     targets = denormalize(spec, x)[..., 0].cpu().numpy()
     probs = recon[..., 0].float().cpu().numpy()
     best, rows = calibrate_export_threshold(probs, targets)
@@ -297,7 +294,6 @@ def cli(argv=None) -> np.ndarray:
     """Command-line interface; returns the generated images [N, H, W, C]
     (f32, on the host) that the PNG shows."""
     args = get_parser().parse_args(argv)
-    check_ported(args)
     # validate the export-threshold spec before paying for generation
     if args.export_threshold is not None:
         if args.export_midi is None:
@@ -322,6 +318,27 @@ def cli(argv=None) -> np.ndarray:
     out_path = args.out or f"{args.mode}.png"
     is_vq = getattr(model, "latent_kind", "gaussian") == "vq"
 
+    conditional = getattr(model, "num_classes", 0) > 0
+    if args.label is not None and not (args.prior is not None and args.mode in ("sample", "continue")):
+        # with --prior the class may live in the prior instead; load_matching_prior checks it there
+        if not conditional:
+            raise SystemExit(
+                "--label needs a conditional checkpoint (--conditional run); this one is "
+                "unconditional, so the label would be silently ignored"
+            )
+        if not (0 <= args.label < model.num_classes):
+            # an out-of-range label one-hots to zeros: garbage decoded without an error
+            raise SystemExit(
+                f"--label must be in [0, {model.num_classes - 1}] "
+                f"(checkpoint has {model.num_classes} classes), got {args.label}"
+            )
+
+    def labels_for(y_batch, n):
+        """--label wins, else the batch labels (``label_kwarg`` keeps them from unconditional models)."""
+        if args.label is not None:
+            return torch.full((n,), int(args.label), dtype=torch.long, device=dev)
+        return y_batch[:n]
+
     if args.prior is not None and not (args.mode in ("sample", "continue") and is_vq):
         raise SystemExit("--prior applies to --mode sample/continue on VQVAE checkpoints only")
     if args.mode == "continue" and args.prior is None:
@@ -335,15 +352,23 @@ def cli(argv=None) -> np.ndarray:
     if args.prior is not None:
         images = _prior_images(args, model, dataset, data_dir, image_size, cfg, dev)
     elif args.mode == "sample":
-        images = sample_prior(model, args.num_samples, args.seed)
+        y = None
+        if conditional:
+            # --label K: every sample class K; default: one class per grid column
+            y = labels_for(None, args.num_samples) if args.label is not None else (
+                torch.arange(args.num_samples, device=dev) % model.num_classes)
+            print(f"conditional sampling: labels {y.tolist()}")
+        images = sample_prior(model, args.num_samples, args.seed, y=y)
     elif args.mode == "reconstruct":
-        x, _, spec = _fetch_eval_batch(dataset, data_dir, image_size, args.num_samples, cfg, dev)
-        recon = reconstruct(model, x, args.seed)
+        x, yb, spec = _fetch_eval_batch(dataset, data_dir, image_size, args.num_samples, cfg, dev)
+        recon = reconstruct(model, x, args.seed, y=labels_for(yb, x.shape[0]))
         # interleave input | reconstruction pairs
         images = torch.stack([denormalize(spec, x), recon], dim=1).reshape(-1, *recon.shape[1:])
     elif args.mode == "interpolate":
-        x, _, _ = _fetch_eval_batch(dataset, data_dir, image_size, 2, cfg, dev)
-        path = interpolate(model, x[:1], x[1:2], steps=args.steps, mode="slerp" if args.slerp else "lerp")
+        x, yb, _ = _fetch_eval_batch(dataset, data_dir, image_size, 2, cfg, dev)
+        path = interpolate(
+            model, x[:1], x[1:2], steps=args.steps, mode="slerp" if args.slerp else "lerp", y=labels_for(yb, 1)
+        )
         images = path[:, 0]
     else:  # traverse: one row per latent dimension, varied across ±2.5σ
         if is_vq:
@@ -352,8 +377,8 @@ def cli(argv=None) -> np.ndarray:
                 "--mode traverse applies to Gaussian-latent models; for a VQVAE "
                 "checkpoint use sample/reconstruct/interpolate"
             )
-        x, _, _ = _fetch_eval_batch(dataset, data_dir, image_size, 1, cfg, dev)
-        grid_rows = traverse(model, x, steps=args.steps)
+        x, yb, _ = _fetch_eval_batch(dataset, data_dir, image_size, 1, cfg, dev)
+        grid_rows = traverse(model, x, steps=args.steps, y=labels_for(yb, 1))
         images = grid_rows.reshape(-1, *grid_rows.shape[2:])
 
     images = images.float().cpu().numpy()
@@ -361,7 +386,9 @@ def cli(argv=None) -> np.ndarray:
     cols = args.steps if args.mode == "traverse" else 8
     _save_png(_to_grid(images, cols=cols), out_path)
     if args.export_midi:
-        threshold = _resolve_export_threshold(args, model, cfg, dataset, data_dir, image_size, args.seed + 1, dev)
+        threshold = _resolve_export_threshold(
+            args, model, cfg, dataset, data_dir, image_size, args.seed + 1, dev, labels_for
+        )
         _export_midi(images, args.export_midi, threshold=threshold)
     return images
 

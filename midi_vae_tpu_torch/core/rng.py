@@ -41,6 +41,13 @@ def derive_step_seed(epoch_seed: int, step: int) -> int:
     return (key ^ (key >> 32)) & 0x7FFFFFFF
 
 
+def derive_micro_seed(step_seed: int, micro: int) -> int:
+    """The seed of micro-batch ``micro`` of an accumulated step, in [0,
+    2**31): the counterpart of ``fold_in(step_key, micro)``, hashed as
+    :func:`derive_step_seed` hashes a step into its epoch."""
+    return derive_step_seed(step_seed, micro)
+
+
 def host_epoch_seed(seed: int, epoch: int, process_index: int = 0) -> int:
     """Deterministic integer seed for host-side numpy shuffling: stable under
     resume, distinct across epochs and processes (as the JAX package's)."""

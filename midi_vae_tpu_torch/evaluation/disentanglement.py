@@ -19,15 +19,19 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from midi_vae_tpu_torch.models.vae import label_kwarg
+
 
 @torch.inference_mode()
 def encode_means(loader, model) -> tuple:
     """Sweep ``loader.epoch(1)`` through the encoder; returns host (mu [N, D]
-    f32, y [N]) with the padding rows (``mask == 0``) dropped."""
+    f32, y [N]) with the padding rows (``mask == 0``) dropped. A
+    conditional model encodes under the batch labels."""
     mus, ys = [], []
     for batch in loader.epoch(1):
         valid = batch.mask > 0
-        mus.append(model.encode(batch.x, train=False).mu[valid].float().cpu().numpy())
+        enc = model.encode(batch.x, train=False, **label_kwarg(model, batch.y))
+        mus.append(enc.mu[valid].float().cpu().numpy())
         ys.append(batch.y[valid].cpu().numpy())
     return np.concatenate(mus), np.concatenate(ys)
 

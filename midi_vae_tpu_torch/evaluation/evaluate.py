@@ -16,7 +16,8 @@ package's:
 
 The forward samples z as in training (the reference samples in eval
 too); batch ``i`` of a sweep draws with ``derive_step_seed(seed, i)``, or
-takes an injected ``eps``. With ``collect_latents`` the sweep also returns
+takes an injected ``eps``. A conditional model evaluates under the batch
+labels (q(z|x, y)). With ``collect_latents`` the sweep also returns
 each real sample's z (``latents`` [N, D], copied to the host per batch).
 """
 
@@ -29,6 +30,7 @@ import torch
 
 from midi_vae_tpu_torch.core.rng import derive_step_seed
 from midi_vae_tpu_torch.losses.elbo import bce_from_logits, denormalized_targets
+from midi_vae_tpu_torch.models.vae import label_kwarg
 
 _SUM = (
     "bce_sum", "bce_raw_sum", "mse_sum", "mae_sum", "n_elem", "n_samples",
@@ -39,8 +41,8 @@ _MAX = ("stim_max", "recon_max")
 
 
 def make_eval_step(model, collect_latents: bool = False, target_denorm=None, occupancy_denorm=None) -> Callable:
-    """Build ``eval_step(x, mask, seed, *, params=None, eps=None) → dict of
-    device tensors``.
+    """Build ``eval_step(x, mask, seed, *, y=None, params=None, eps=None) →
+    dict of device tensors``; ``y`` reaches conditional models only.
 
     ``params`` replaces the model's parameters for this call (name →
     tensor, e.g. the EMA averages; BatchNorm statistics stay the model's).
@@ -52,8 +54,8 @@ def make_eval_step(model, collect_latents: bool = False, target_denorm=None, occ
     """
 
     @torch.no_grad()
-    def eval_step(x, mask, seed: int, *, params=None, eps=None) -> Dict[str, torch.Tensor]:
-        kwargs = dict(train=False, seed=seed, eps=eps)
+    def eval_step(x, mask, seed: int, *, y=None, params=None, eps=None) -> Dict[str, torch.Tensor]:
+        kwargs = dict(train=False, seed=seed, eps=eps, **label_kwarg(model, y))
         if params is None:
             out = model(x, **kwargs)
         else:
@@ -126,7 +128,7 @@ def evaluate(
     acc = None
     latents = []
     for i, batch in enumerate(loader.epoch(1)):
-        res = step_fn(batch.x, batch.mask, derive_step_seed(seed, i), params=params)
+        res = step_fn(batch.x, batch.mask, derive_step_seed(seed, i), y=batch.y, params=params)
         z = res.pop("latents", None)
         if collect_latents:
             latents.append(z[batch.mask > 0].float().cpu().numpy())

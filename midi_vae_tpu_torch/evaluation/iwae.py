@@ -13,7 +13,9 @@ The K decodes are chunked, ``chunk`` draws per call with ``logaddexp``
 across chunks, so device memory is bounded by ``chunk × batch`` images
 whatever K. Draw j of batch i is keyed by (seed, i, j) alone
 (:func:`iwae_draws`), as ``fold_in(batch_key, offset + j)`` keys it in
-the JAX package, so any chunking reduces the same draws.
+the JAX package, so any chunking reduces the same draws. A conditional
+model encodes under the batch labels and decodes each draw under its
+sample's label (the bound is on p(x|y)).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from midi_vae_tpu_torch.core.rng import derive_step_seed
 from midi_vae_tpu_torch.evaluation.inference import normal_draw
 from midi_vae_tpu_torch.losses.elbo import bce_from_logits, denormalized_targets
+from midi_vae_tpu_torch.models.vae import label_kwarg
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -40,14 +43,15 @@ def iwae_draws(batch_seed: int, offset: int, chunk: int, b: int, d: int, device)
 
 
 def make_iwae_step(model, chunk: int, target_denorm: Optional[Tuple] = None) -> Callable:
-    """Build ``iwae_step(x, batch_seed, offset, *, eps=None) → [B]``: the
-    per-sample log-sum-exp of ``chunk`` importance weights, unnormalised
+    """Build ``iwae_step(x, batch_seed, offset, *, y=None, eps=None) → [B]``:
+    the per-sample log-sum-exp of ``chunk`` importance weights, unnormalised
     (the sweep divides by the total K once, so chunks compose exactly).
-    ``eps`` [chunk, B, D] replaces the draws."""
+    ``y`` reaches conditional models only; ``eps`` [chunk, B, D] replaces
+    the draws."""
 
     @torch.inference_mode()
-    def iwae_step(x: torch.Tensor, batch_seed: int, offset: int, *, eps: Optional[torch.Tensor] = None):
-        enc = model.encode(x, train=False)
+    def iwae_step(x: torch.Tensor, batch_seed: int, offset: int, *, y=None, eps: Optional[torch.Tensor] = None):
+        enc = model.encode(x, train=False, **label_kwarg(model, y))
         mu = enc.mu.float()
         log_var = enc.log_var.float()
         b, d = mu.shape
@@ -56,7 +60,8 @@ def make_iwae_step(model, chunk: int, target_denorm: Optional[Tuple] = None) -> 
         eps = eps.to(mu.device, torch.float32)
         z = mu[None] + eps * torch.exp(0.5 * log_var)[None]
 
-        logits = model.decode_logits(z.reshape(chunk * b, d), train=False)
+        logits = model.decode_logits(z.reshape(chunk * b, d), train=False,
+                                     **label_kwarg(model, None if y is None else y.repeat(chunk)))
         logits = logits.reshape(chunk, b, *logits.shape[1:]).float()
         targets = x if target_denorm is None else denormalized_targets(x, target_denorm)
         # Bernoulli log p(x|z_k): [chunk, B], the clamped log-likelihood summed over pixels
@@ -101,7 +106,7 @@ def iwae_bound(
         lse = None
         offset = 0
         for size in sizes:
-            part = steps[size](batch.x, batch_seed, offset)
+            part = steps[size](batch.x, batch_seed, offset, y=batch.y)
             offset += size
             lse = part if lse is None else torch.logaddexp(lse, part)
         mask = batch.mask > 0

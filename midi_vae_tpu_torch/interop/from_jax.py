@@ -25,7 +25,11 @@ TransformerCodePrior.bos,      params/bos, pos_embed       as is
 A Dense's flax kernel may have more than two axes: the attention's
 ``query``/``key``/``value`` kernels are [F, H, F/H] and ``out`` [H, F/H,
 F] (flax ``DenseGeneral``), flattened here to the torch [out, in] matrix.
-A ``MaskedConv``'s mask is a constant outside the state dict.
+A ``MaskedConv``'s mask is a constant outside the state dict. A
+conditional model's ``fc_mu``/``fc_var``/``decoder_input`` kernels are
+wider by the class count on both sides, and MLPVAE's list-named layers
+(``encoder_0``, ``decoder_1``, …) carry flax's names, so both map by the
+same rules.
 
 :func:`flax_name_map` exposes the mapping, and :func:`to_flax_layout`
 converts back, so tests can compare gradients and updated parameters

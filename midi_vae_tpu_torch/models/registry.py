@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``midi_vae_tpu/models/registry.py``).
 
-Ported so far: ``VanillaVAE`` (reference layout), ``FoldedVAE`` and the
-VQ-VAEs ``VQVAE`` and ``FoldedVQVAE``.
+Ported so far: ``VanillaVAE`` (reference layout), ``FoldedVAE``,
+``MLPVAE`` and the VQ-VAEs ``VQVAE`` and ``FoldedVQVAE``. The Gaussian
+models take ``num_classes`` > 0 to become conditional.
 """
 
 from __future__ import annotations
@@ -12,10 +13,13 @@ import torch
 
 from midi_vae_tpu_torch.core.device import DeviceLike, resolve_device
 from midi_vae_tpu_torch.models.folded import FoldedVAE
+from midi_vae_tpu_torch.models.mlp import MLPVAE
 from midi_vae_tpu_torch.models.vae import VanillaVAE
 from midi_vae_tpu_torch.models.vq import VQVAE, FoldedVQVAE
 
-MODEL_REGISTRY = {"vanillavae": VanillaVAE, "foldedvae": FoldedVAE, "vqvae": VQVAE, "foldedvqvae": FoldedVQVAE}
+MODEL_REGISTRY = {
+    "vanillavae": VanillaVAE, "mlpvae": MLPVAE, "foldedvae": FoldedVAE, "vqvae": VQVAE, "foldedvqvae": FoldedVQVAE,
+}
 VQ_ARCHS = ("vqvae", "foldedvqvae")
 
 
@@ -58,6 +62,11 @@ def build_model(
             raise ValueError("VQVAE has no conditional variant; use --model VanillaVAE for --conditional")
     elif torch_compat:
         raise NotImplementedError("torch_compat is not ported to the PyTorch package yet (ROADMAP Queue 1 item 17)")
+    if num_classes < 0:
+        raise ValueError(
+            "conditional training needs a labeled dataset with a known class "
+            f"count; got num_classes={num_classes} (unlabeled/by-folder)"
+        )
     dev = resolve_device(device)
     kwargs = dict(
         in_channels=in_channels,
@@ -65,12 +74,16 @@ def build_model(
         input_dim=input_dim,
         fused_reparam=fused_reparam,
         output_logit_bias=output_logit_bias,
-        stem=stem,
-        head=head,
-        norm=norm,
-        num_classes=num_classes,
+        num_classes=int(num_classes),
         generator=torch.Generator().manual_seed(seed),
     )
+    if key == "mlpvae":
+        if norm != "batch":
+            raise ValueError("--norm applies to conv architectures; MLPVAE has no norm layers")
+        if stem != "conv" or head != "deconv":
+            raise ValueError("--stem/--head apply to conv architectures; MLPVAE has neither")
+    else:
+        kwargs.update(stem=stem, head=head, norm=norm)
     if hidden_dims is not None:
         kwargs["hidden_dims"] = tuple(hidden_dims)
     if dtype is not None:

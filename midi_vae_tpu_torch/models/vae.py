@@ -29,6 +29,11 @@ Semantics that differ from torch's own layers and are kept here:
 
 Compute runs in ``dtype`` (bfloat16 on the flagship) with float32
 parameters, as flax's ``dtype`` argument does.
+
+A conditional model (``num_classes`` > 0) joins the one-hot label to the
+flattened features before ``fc_mu``/``fc_var`` and to z before
+``decoder_input``; those Dense layers are that much wider, as in flax.
+Labels go to a model only through :func:`label_kwarg`.
 """
 
 from __future__ import annotations
@@ -43,6 +48,27 @@ from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
 from midi_vae_tpu_torch.ops.fused_elbo import fused_reparam_kl
 
 _LEAKY_SLOPE = 0.01
+
+
+def label_kwarg(model, y) -> dict:
+    """``{"y": y}`` when ``model`` is conditional (``num_classes`` > 0) and
+    labels exist, else ``{}``: the one rule for passing labels to a model.
+    Callers pass whatever labels they hold; unconditional models never see
+    the keyword, and a conditional model called without labels raises."""
+    return {"y": y} if y is not None and getattr(model, "num_classes", 0) > 0 else {}
+
+
+def class_onehot(model: nn.Module, y: Optional[torch.Tensor], where: str) -> torch.Tensor:
+    """One-hot [B, num_classes] of int labels ``y`` in the model's dtype;
+    an out-of-range label gives a zero row, as ``jax.nn.one_hot`` does.
+    Raises when a conditional model is called without labels."""
+    if y is None:
+        raise ValueError(
+            f"{type(model).__name__}(num_classes={model.num_classes}) is conditional: "
+            f"{where} requires labels y (int [B])"
+        )
+    classes = torch.arange(model.num_classes, device=y.device)
+    return (y.reshape(-1, 1).long() == classes).to(model.dtype)
 
 
 def conv_output_size(dim: int, num_layers: int, stride: int = 2) -> int:
@@ -287,8 +313,9 @@ class VanillaVAE(nn.Module):
     """Convolutional VAE over NHWC piano-roll images.
 
     Only the reference layout is ported: ``stem="conv"``, ``head="deconv"``,
-    ``norm="batch"``, unconditional. Parameters are created on the CPU from
-    ``generator`` (seed 0 when none is given); move the model with ``.to``.
+    ``norm="batch"``; ``num_classes`` > 0 makes it conditional. Parameters
+    are created on the CPU from ``generator`` (seed 0 when none is given);
+    move the model with ``.to``.
     """
 
     def __init__(
@@ -311,8 +338,7 @@ class VanillaVAE(nn.Module):
         if stem != "conv" or head != "deconv":
             raise NotImplementedError("only stem='conv' and head='deconv' are ported to the PyTorch package yet")
         _check_norm(norm)
-        if num_classes:
-            raise NotImplementedError("conditional models are not ported to the PyTorch package yet")
+        self.num_classes = int(num_classes)
         self.in_channels = in_channels
         self.latent_dim = latent_dim
         self.input_dim = input_dim
@@ -337,9 +363,9 @@ class VanillaVAE(nn.Module):
 
     def _build_heads(self, gen: torch.Generator) -> None:
         kw = dict(dtype=self.dtype, generator=gen)
-        self.fc_mu = Dense(self.flattened_size, self.latent_dim, **kw)
-        self.fc_var = Dense(self.flattened_size, self.latent_dim, **kw)
-        self.decoder_input = Dense(self.latent_dim, self.flattened_size, **kw)
+        self.fc_mu = Dense(self.flattened_size + self.num_classes, self.latent_dim, **kw)
+        self.fc_var = Dense(self.flattened_size + self.num_classes, self.latent_dim, **kw)
+        self.decoder_input = Dense(self.latent_dim + self.num_classes, self.flattened_size, **kw)
 
     @property
     def last_conv_size(self) -> int:
@@ -354,16 +380,22 @@ class VanillaVAE(nn.Module):
         """Spatial size produced by the decoder before cropping."""
         return self.last_conv_size * (2 ** len(self.hidden_dims))
 
-    def encode(self, x: torch.Tensor, train: bool = False) -> EncoderOutput:
-        """NHWC images → (mu, log_var); the features are flattened in NHWC order."""
+    def encode(self, x: torch.Tensor, train: bool = False, y: Optional[torch.Tensor] = None) -> EncoderOutput:
+        """NHWC images → (mu, log_var); the features are flattened in NHWC
+        order. A conditional model's heads also see the one-hot of ``y``;
+        ``pre_latents`` stays the unconditioned features."""
         h = self.encoder(x, train)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        return EncoderOutput(mu=self.fc_mu(h), log_var=self.fc_var(h), pre_latents=h)
+        hc = torch.cat([h, class_onehot(self, y, "encode")], dim=-1) if self.num_classes > 0 else h
+        return EncoderOutput(mu=self.fc_mu(hc), log_var=self.fc_var(hc), pre_latents=h)
 
-    def decode_logits(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """Latents → NHWC logits, center-cropped to ``input_dim`` when the
-        decoder's natural size differs. Always contiguous."""
+    def decode_logits(self, z: torch.Tensor, train: bool = False, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latents (and a conditional model's labels) → NHWC logits,
+        center-cropped to ``input_dim`` when the decoder's natural size
+        differs. Always contiguous."""
         s = self.last_conv_size
+        if self.num_classes > 0:
+            z = torch.cat([z.to(self.dtype), class_onehot(self, y, "decode")], dim=-1)
         h = self.decoder_input(z).reshape(-1, s, s, self.hidden_dims[-1]).permute(0, 3, 1, 2)
         return self._decode_features(h, train)
 
@@ -377,9 +409,9 @@ class VanillaVAE(nn.Module):
             logits = logits[:, off : off + self.input_dim, off : off + self.input_dim, :]
         return logits.contiguous()
 
-    def decode(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, train: bool = False, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Latents → reconstruction probabilities (sigmoid of logits)."""
-        return torch.sigmoid(self.decode_logits(z, train))
+        return torch.sigmoid(self.decode_logits(z, train, y=y))
 
     def reparameterize(
         self,
@@ -415,11 +447,14 @@ class VanillaVAE(nn.Module):
         *,
         seed: Optional[int] = None,
         eps: Optional[torch.Tensor] = None,
+        y: Optional[torch.Tensor] = None,
     ) -> ModelOutput:
-        """Full forward pass on NHWC ``x``; see :meth:`reparameterize` for ``seed``/``eps``."""
-        encoded = self.encode(x, train)
+        """Full forward pass on NHWC ``x``; see :meth:`reparameterize` for
+        ``seed``/``eps``. ``y`` (int labels [B]) is required by a conditional
+        model."""
+        encoded = self.encode(x, train, y=y)
         z = self.reparameterize(encoded.mu, encoded.log_var, seed=seed, eps=eps)
-        logits = self.decode_logits(z, train)
+        logits = self.decode_logits(z, train, y=y)
         return ModelOutput(output=torch.sigmoid(logits), logits=logits, input=x, encoded=encoded, latents=z)
 
 

@@ -10,8 +10,10 @@ batching; latency is bounded by the wait window.
 Buckets keep the batch shapes few: on the card each new shape meets cuDNN
 and the allocator for the first time, as each new shape compiles in the
 JAX package. ``fn`` runs on the dispatcher thread; ``torch.inference_mode``
-is per thread, so an ``fn`` that needs it enters it itself. Labelled
-requests (conditional models) are not ported yet (ROADMAP item 17).
+is per thread, so an ``fn`` that needs it enters it itself. A labelled
+batcher (conditional models) takes ``submit(x, y)`` and calls ``fn(rows,
+labels)``: the labels are padded with the rows, so requests for different
+classes share one device batch.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ class MicroBatcher:
     bounds a coalesced batch; ``max_wait_ms`` is how long the dispatcher
     waits to fill one. ``item_shape`` fixes the per-item trailing shape up
     front (else the first request sets it); a request of another shape is
-    refused at its own ``submit``.
+    refused at its own ``submit``. ``labeled=True``: each item carries an
+    int label (see the module docstring).
     """
 
     def __init__(
@@ -53,8 +56,10 @@ class MicroBatcher:
         max_batch: int = 64,
         max_wait_ms: float = 2.0,
         item_shape: "tuple | None" = None,
+        labeled: bool = False,
     ):
         self.fn = fn
+        self.labeled = labeled
         # clamp the cap to a bucket size so padding never exceeds it
         self.max_batch = _bucket(max_batch)
         self.max_wait = max_wait_ms / 1000.0
@@ -68,14 +73,23 @@ class MicroBatcher:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def submit(self, x: np.ndarray) -> Future:
+    def submit(self, x: np.ndarray, y: "np.ndarray | None" = None) -> Future:
         """Enqueue a [n, ...] request; the future resolves to its [n, ...]
         result. Raises ``ValueError`` at once (in the caller's thread) when
         the request's item shape breaks the batcher's contract; other
-        requests in flight are unaffected."""
+        requests in flight are unaffected. A labelled batcher needs ``y``,
+        int labels [n]; another refuses them."""
         x = np.asarray(x)
         if x.ndim < 1 or len(x) == 0:
             raise ValueError(f"request must be a non-empty [n, ...] array, got shape {x.shape}")
+        if self.labeled:
+            if y is None:
+                raise ValueError("this batcher serves a conditional model: submit(x, y) needs labels")
+            y = np.asarray(y, np.int32)
+            if y.shape != (len(x),):
+                raise ValueError(f"labels must be int [n={len(x)}], got shape {y.shape}")
+        elif y is not None:
+            raise ValueError("this batcher serves an unconditional model; drop the labels")
         fut: Future = Future()
         with self._submit_lock:
             # checked under the lock: close() drains under the same lock, so a
@@ -89,11 +103,11 @@ class MicroBatcher:
                     f"request item shape {tuple(x.shape[1:])} does not match the "
                     f"batcher's item shape {self._item_shape}"
                 )
-            self._queue.put((x, fut))
+            self._queue.put((x, y, fut))
         return fut
 
-    def __call__(self, x: np.ndarray) -> np.ndarray:
-        return self.submit(x).result()
+    def __call__(self, x: np.ndarray, y: "np.ndarray | None" = None) -> np.ndarray:
+        return self.submit(x, y).result()
 
     def _loop(self):
         while not self._stop.is_set():
@@ -123,12 +137,13 @@ class MicroBatcher:
         # lock so close()'s own carry handling cannot resolve it twice
         with self._submit_lock:
             if self._carry is not None:
-                self._carry[1].set_exception(RuntimeError("batcher closed"))
+                self._carry[2].set_exception(RuntimeError("batcher closed"))
                 self._carry = None
 
     def _dispatch(self, pending: Sequence):
         try:
-            batch = np.concatenate([x for x, _ in pending])
+            batch = np.concatenate([x for x, _, _ in pending])
+            labels = np.concatenate([y for _, y, _ in pending]) if self.labeled else None
             # a single submit may exceed max_batch (coalescing caps only
             # multi-request ticks): run it in max_batch-sized chunks, so fn
             # only ever sees bucket sizes <= max_batch
@@ -140,11 +155,17 @@ class MicroBatcher:
                 size = _bucket(n)
                 if size > n:  # pad to the bucket
                     rows = np.concatenate([rows, np.zeros((size - n, *rows.shape[1:]), rows.dtype)])
-                outs.append(np.asarray(self.fn(rows))[:n])
+                if self.labeled:
+                    lab = labels[start : start + self.max_batch]
+                    if size > n:
+                        lab = np.concatenate([lab, np.zeros(size - n, lab.dtype)])
+                    outs.append(np.asarray(self.fn(rows, lab))[:n])
+                else:
+                    outs.append(np.asarray(self.fn(rows))[:n])
                 n_chunks += 1
             out = outs[0] if len(outs) == 1 else np.concatenate(outs)
         except Exception as e:  # noqa: BLE001 - to every waiter; the dispatcher thread survives
-            for _, fut in pending:
+            for _, _, fut in pending:
                 fut.set_exception(e)
             return
         # counters first: a caller woken by result() must see them updated;
@@ -152,7 +173,7 @@ class MicroBatcher:
         self.batches_dispatched += n_chunks
         self.requests_served += len(pending)
         offset = 0
-        for x, fut in pending:
+        for x, _, fut in pending:
             fut.set_result(out[offset : offset + len(x)])
             offset += len(x)
 
@@ -161,11 +182,11 @@ class MicroBatcher:
         self._thread.join(timeout=2.0)
         with self._submit_lock:  # no submit can interleave with the drain
             if self._carry is not None:
-                self._carry[1].set_exception(RuntimeError("batcher closed"))
+                self._carry[2].set_exception(RuntimeError("batcher closed"))
                 self._carry = None
             while True:
                 try:
-                    _, fut = self._queue.get_nowait()
+                    *_, fut = self._queue.get_nowait()
                     fut.set_exception(RuntimeError("batcher closed"))
                 except queue.Empty:
                     break

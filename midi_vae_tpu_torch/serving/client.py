@@ -15,7 +15,10 @@ message (errors are JSON on both wires).
     path = c.interpolate(a, b, steps=9) # → [9,H,W,C]
     cont = c.continue_(x, keep_cols=8)  # VQ + --prior: → [N,H,W,C]
 
-Labels of conditional models are not ported yet (ROADMAP item 17).
+Every call takes ``labels=`` for a conditional checkpoint or a
+class-conditional prior: a scalar class for every row, or one per row.
+They ride the JSON body (``label``/``labels``), or the query string on the
+npy wire.
 """
 
 from __future__ import annotations
@@ -37,6 +40,30 @@ class ServingError(RuntimeError):
         super().__init__(f"HTTP {status}: {message}")
         self.status = status
         self.message = message
+
+
+def _label_query(labels) -> str:
+    """``labels`` as a query-string item for the npy wire ('' when None)."""
+    if labels is None:
+        return ""
+    arr = np.asarray(labels, np.int32)
+    if arr.ndim == 0:
+        return f"label={int(arr)}"
+    return "labels=" + ",".join(str(int(v)) for v in arr)
+
+
+def _label_fields(labels) -> dict:
+    """``labels`` as JSON body fields ({} when None)."""
+    if labels is None:
+        return {}
+    arr = np.asarray(labels, np.int32)
+    if arr.ndim == 0:
+        return {"label": int(arr)}
+    return {"labels": [int(v) for v in arr]}
+
+
+def _with_query(path: str, query: str) -> str:
+    return path if not query else path + ("&" if "?" in path else "?") + query
 
 
 class ServingClient:
@@ -64,12 +91,14 @@ class ServingClient:
             return npy_loads(body)
         return json.loads(body)
 
-    def _post_tensor(self, path: str, x: np.ndarray):
-        """POST a tensor body on the configured wire."""
+    def _post_tensor(self, path: str, x: np.ndarray, labels=None):
+        """POST a tensor body on the configured wire, with its labels."""
         x = np.asarray(x, np.float32)
         if self.wire == "npy":
-            return self._request(path, npy_dumps(x), {"Content-Type": NPY_CONTENT_TYPE})
-        return self._request(path, json.dumps({"images": x.tolist()}).encode(), {"Content-Type": "application/json"})
+            return self._request(_with_query(path, _label_query(labels)), npy_dumps(x),
+                                 {"Content-Type": NPY_CONTENT_TYPE})
+        body = {"images": x.tolist(), **_label_fields(labels)}
+        return self._request(path, json.dumps(body).encode(), {"Content-Type": "application/json"})
 
     def _post_params(self, path: str, params: dict):
         """POST JSON parameters; the response rides the configured wire."""
@@ -82,23 +111,24 @@ class ServingClient:
     def healthz(self) -> dict:
         return self._request("/healthz", None, {})
 
-    def reconstruct(self, x: np.ndarray) -> np.ndarray:
+    def reconstruct(self, x: np.ndarray, labels=None) -> np.ndarray:
         """[N,H,W,C] (or [H,W,C]) → posterior-mean reconstructions [N,H,W,C]."""
-        out = self._post_tensor("/reconstruct", x)
+        out = self._post_tensor("/reconstruct", x, labels)
         return out if isinstance(out, np.ndarray) else np.asarray(out["reconstructions"], np.float32)
 
-    def encode(self, x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    def encode(self, x: np.ndarray, labels=None) -> Tuple[np.ndarray, np.ndarray]:
         """[N,H,W,C] → (mu [N,D], log_var [N,D])."""
-        out = self._post_tensor("/encode", x)
+        out = self._post_tensor("/encode", x, labels)
         if isinstance(out, np.ndarray):  # npy wire: [N, 2D], mu ‖ log_var halves
             d = out.shape[-1] // 2
             return out[:, :d], out[:, d:]
         return np.asarray(out["mu"], np.float32), np.asarray(out["log_var"], np.float32)
 
-    def sample(self, n: int, seed: int = 0, *, temperature: float = 1.0, top_p: Optional[float] = None) -> np.ndarray:
+    def sample(self, n: int, seed: int = 0, labels=None, *, temperature: float = 1.0,
+               top_p: Optional[float] = None) -> np.ndarray:
         """``n`` prior samples [n,H,W,C] drawn from ``seed``; ``temperature``
         and ``top_p`` apply to a server with a code prior attached."""
-        params = {"n": int(n), "seed": int(seed)}
+        params = {"n": int(n), "seed": int(seed), **_label_fields(labels)}
         if temperature != 1.0:
             params["temperature"] = float(temperature)
         if top_p is not None:
@@ -107,7 +137,7 @@ class ServingClient:
         return out if isinstance(out, np.ndarray) else np.asarray(out["samples"], np.float32)
 
     def continue_rolls(self, x: np.ndarray, keep_cols: int, *, seed: int = 0, temperature: float = 1.0,
-                       top_p: Optional[float] = None) -> np.ndarray:
+                       top_p: Optional[float] = None, labels=None) -> np.ndarray:
         """[N,H,W,C] (or [H,W,C]) rolls → continuations of the same shape: the
         server keeps each roll's first ``keep_cols`` code-grid time columns
         and its code prior writes the rest."""
@@ -119,25 +149,28 @@ class ServingClient:
             params["top_p"] = float(top_p)
         if self.wire == "npy":
             query = "&".join(f"{k}={v}" for k, v in params.items())
-            return self._request(f"/continue?{query}", npy_dumps(x), {"Content-Type": NPY_CONTENT_TYPE})
-        out = self._post_params("/continue", {"images": x.tolist(), **params})
+            return self._request(_with_query(f"/continue?{query}", _label_query(labels)), npy_dumps(x),
+                                 {"Content-Type": NPY_CONTENT_TYPE})
+        out = self._post_params("/continue", {"images": x.tolist(), **params, **_label_fields(labels)})
         return out if isinstance(out, np.ndarray) else np.asarray(out["continuations"], np.float32)
 
     continue_ = continue_rolls
 
-    def interpolate(self, a: np.ndarray, b: np.ndarray, *, steps: int = 8, slerp: bool = False) -> np.ndarray:
+    def interpolate(self, a: np.ndarray, b: np.ndarray, *, steps: int = 8, slerp: bool = False,
+                    labels=None) -> np.ndarray:
         """[H,W,C] endpoints → the [steps,H,W,C] latent-space path."""
         if self.wire == "npy":
             # one [2,H,W,C] npy body carries both endpoints; the scalar
             # parameters ride the query string
             ends = np.stack([np.asarray(a, np.float32), np.asarray(b, np.float32)])
-            path = f"/interpolate?steps={int(steps)}&slerp={int(bool(slerp))}"
+            path = _with_query(f"/interpolate?steps={int(steps)}&slerp={int(bool(slerp))}", _label_query(labels))
             return self._request(path, npy_dumps(ends), {"Content-Type": NPY_CONTENT_TYPE})
         params = {
             "a": np.asarray(a, np.float32).tolist(),
             "b": np.asarray(b, np.float32).tolist(),
             "steps": int(steps),
             "slerp": bool(slerp),
+            **_label_fields(labels),
         }
         out = self._post_params("/interpolate", params)
         return out if isinstance(out, np.ndarray) else np.asarray(out["path"], np.float32)

@@ -16,8 +16,8 @@ A stdlib ``ThreadingHTTPServer`` around :class:`InferenceService`:
   8, "seed": 0, "temperature": 1.0, "top_p": null}`` → ``{"continuations":
   [...]}``: each roll's first ``keep_cols`` code-grid time columns kept,
   the rest written by the prior (``generate --mode continue``);
-- ``GET /healthz``: liveness, the model, the attached prior and the
-  batchers' counters.
+- ``GET /healthz``: liveness, the model, ``conditional`` and
+  ``num_classes``, the attached prior and the batchers' counters.
 
 Run: ``python -m midi_vae_tpu_torch.serving.server --checkpoint CKPT [--prior PRIOR] --port 8000``
 (on the GPU; ``--cpu`` on the CPU).
@@ -35,6 +35,15 @@ EMA usage marginal.
 dispatch copies its padded batch to the device once and its result back
 once; the copy back is the request's synchronisation with the device.
 
+**Conditional checkpoints** (``--conditional`` runs) need labels on every
+endpoint: JSON ``"label"`` (a scalar for every row) or ``"labels"`` (one
+per row), or ``?label=K`` / ``?labels=0,3,1`` on the query string of a
+binary request. The batchers carry the labels with the rows, so requests
+for different classes share one device batch. A class-conditional code
+prior takes the same fields on /sample and /continue. A label on an
+unconditional deployment, a missing one on a conditional deployment and
+one out of range are the client's faults (400).
+
 **Binary wire format**: /reconstruct, /encode, /interpolate and /continue
 also take a raw ``.npy`` body (``Content-Type: application/x-npy`` or
 ``application/octet-stream``; /interpolate one [2, H, W, C] array with
@@ -46,8 +55,7 @@ array, ``mu ‖ log_var``. Errors are always JSON: 400 for the client's
 faults, 413 for an oversized body, 500 for the server's own.
 
 Not ported yet: ``--artifact`` (``torch.export`` artifacts, ROADMAP item
-15), ``--compilation-cache`` and labels (conditional models and
-class-conditional priors, item 17).
+15) and ``--compilation-cache`` (item 17).
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ import numpy as np
 import torch
 
 from midi_vae_tpu_torch.core.device import DeviceLike
+from midi_vae_tpu_torch.models.vae import label_kwarg
 from midi_vae_tpu_torch.serving.batcher import MicroBatcher, _bucket
 from midi_vae_tpu_torch.serving.wire import BINARY_CONTENT_TYPES, NPY_CONTENT_TYPE, npy_dumps, npy_loads
 
@@ -109,28 +118,33 @@ class InferenceService:
         self.latent_dim = int(getattr(model, "flat_latent_dim", model.latent_dim))
         self.latent_kind = getattr(model, "latent_kind", "gaussian")
         self.prior, self.prior_info = None, None
+        self.num_classes = int(getattr(model, "num_classes", 0) or 0)
+        self.conditional = self.num_classes > 0
         item_shape = (image_size, image_size, channels)
-        self.reconstruct = MicroBatcher(
-            self._reconstruct_rows, max_batch=max_batch, max_wait_ms=max_wait_ms, item_shape=item_shape
-        )
-        self.encode = MicroBatcher(self._encode_rows, max_batch=max_batch, max_wait_ms=max_wait_ms, item_shape=item_shape)
+        kw = dict(max_batch=max_batch, max_wait_ms=max_wait_ms, item_shape=item_shape, labeled=self.conditional)
+        self.reconstruct = MicroBatcher(self._reconstruct_rows, **kw)
+        self.encode = MicroBatcher(self._encode_rows, **kw)
 
     def _to_device(self, rows: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(self.device)
 
-    def _reconstruct_rows(self, rows: np.ndarray) -> np.ndarray:
+    def _labels_on_device(self, labels: Optional[np.ndarray]) -> dict:
+        """``label_kwarg`` of a batch's labels, copied to the device."""
+        return label_kwarg(self.model, None if labels is None else torch.from_numpy(np.asarray(labels, np.int64)).to(self.device))
+
+    def _reconstruct_rows(self, rows: np.ndarray, labels: Optional[np.ndarray] = None) -> np.ndarray:
         """Posterior-mean decode of one padded batch (the batcher's ``fn``):
         encode → mu → decode, no draw, so a request reconstructs the same
         way every time."""
         with torch.inference_mode():
-            x = self._to_device(rows)
-            out = self.model.decode(self.model.encode(x, train=False).mu, train=False)
+            x, yk = self._to_device(rows), self._labels_on_device(labels)
+            out = self.model.decode(self.model.encode(x, train=False, **yk).mu, train=False, **yk)
             return out.float().cpu().numpy()
 
-    def _encode_rows(self, rows: np.ndarray) -> np.ndarray:
+    def _encode_rows(self, rows: np.ndarray, labels: Optional[np.ndarray] = None) -> np.ndarray:
         """[B, 2·latent_dim] ``mu ‖ log_var`` of one padded batch."""
         with torch.inference_mode():
-            enc = self.model.encode(self._to_device(rows), train=False)
+            enc = self.model.encode(self._to_device(rows), train=False, **self._labels_on_device(labels))
             return torch.cat([enc.mu, enc.log_var], dim=-1).float().cpu().numpy()
 
     def attach_prior(self, prior_path: str) -> None:
@@ -151,11 +165,38 @@ class InferenceService:
                 f"prior geometry (K={pcfg['num_codes']}, grid={pcfg['grid']}) does not "
                 f"match the checkpoint (K={self.model.codebook_size}, grid={self.model.last_conv_size})"
             )
-        if int(pcfg.get("num_classes") or 0) > 0:
-            raise NotImplementedError(_not_ported("serving a class-conditional prior (labels)", 17))
         self.prior = prior
-        self.prior_info = {"arch": str(pcfg.get("arch") or "pixelcnn"), "num_classes": 0,
+        self.prior_info = {"arch": str(pcfg.get("arch") or "pixelcnn"), "num_classes": int(pcfg.get("num_classes") or 0),
                            "test_nll": pcfg.get("test_nll"), "path": prior_path}
+
+    def validate_labels(self, labels, n: int, num_classes: Optional[int] = None) -> Optional[np.ndarray]:
+        """A request's label field as int32 [n] (a scalar covers every row),
+        or ``None`` for an unconditional deployment. ``num_classes``
+        replaces the model's class count: /sample and /continue condition
+        a class-conditional prior over an unconditional VQ model."""
+        classes = self.num_classes if num_classes is None else num_classes
+        if classes <= 0:
+            if labels is not None:
+                raise ValueError("this checkpoint is unconditional; drop the label field")
+            return None
+        if labels is None:
+            raise ValueError(
+                f"conditional checkpoint: a label (0..{classes - 1}) is required "
+                "('label' scalar or 'labels' list / ?label= query)"
+            )
+        arr = np.asarray(labels, np.int32)
+        if arr.ndim == 0:
+            arr = np.full((n,), int(arr), np.int32)
+        if arr.shape != (n,):
+            raise ValueError(f"labels must be a scalar or [n={n}] list, got shape {arr.shape}")
+        if (arr < 0).any() or (arr >= classes).any():
+            raise ValueError(f"labels must be in [0, {classes - 1}]")
+        return arr
+
+    def _prior_labels(self, label, n: int, b: int) -> Optional[np.ndarray]:
+        """The prior's labels for ``n`` rows padded with class 0 to ``b``."""
+        y = self.validate_labels(label, n, num_classes=self.prior_info["num_classes"])
+        return None if y is None else np.concatenate([y, np.zeros(b - n, np.int32)])
 
     @staticmethod
     def _check_sampling(temperature: float, top_p: Optional[float]) -> None:
@@ -164,13 +205,15 @@ class InferenceService:
         if top_p is not None and not (0.0 < top_p <= 1.0):
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
-    def sample(self, n: int, seed: int = 0, temperature: float = 1.0, top_p: Optional[float] = None) -> np.ndarray:
+    def sample(self, n: int, seed: int = 0, label=None, temperature: float = 1.0,
+               top_p: Optional[float] = None) -> np.ndarray:
         """``n`` prior samples [n, H, W, C]: ``bucket(n)`` rows drawn from
         ``seed`` and decoded, the first ``n`` returned (so ``sample(3, s)``
         is the first 3 rows of ``sample(4, s)``, and the decode meets few
         batch shapes). With a code prior attached the rows are ancestral
         code draws (``temperature``, ``top_p``) decoded by the VQ model, as
-        ``generate --prior`` draws them for the same seed."""
+        ``generate --prior`` draws them for the same seed. ``label``: a
+        class or one per row, for a conditional model or prior."""
         from midi_vae_tpu_torch.evaluation.inference import sample_prior
         from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
 
@@ -181,13 +224,16 @@ class InferenceService:
             if temperature != 1.0 or top_p is not None:
                 raise ValueError("temperature and top_p apply to prior-backed (two-stage) sampling; this "
                                  "deployment has no code prior attached (--prior)")
-            return sample_prior(self.model, _bucket(n), seed).float().cpu().numpy()[:n]
+            y = self.validate_labels(label, n)
+            yk = {} if y is None else {"y": torch.from_numpy(np.concatenate([y, np.zeros(_bucket(n) - n, np.int32)]))}
+            return sample_prior(self.model, _bucket(n), seed, **yk).float().cpu().numpy()[:n]
         idx = sample_codes_autoregressive(self.prior, seed, _bucket(n), self.model.last_conv_size,
-                                          temperature=temperature, top_p=top_p)
+                                          temperature=temperature, top_p=top_p,
+                                          y=self._prior_labels(label, n, _bucket(n)))
         with torch.inference_mode():
             return self.model.decode_indices(idx).float().cpu().numpy()[:n]
 
-    def continue_rolls(self, x: np.ndarray, keep_cols: int, seed: int = 0, temperature: float = 1.0,
+    def continue_rolls(self, x: np.ndarray, keep_cols: int, seed: int = 0, label=None, temperature: float = 1.0,
                        top_p: Optional[float] = None) -> np.ndarray:
         """Two-stage continuation of [N, H, W, C] rolls: encode to code grids,
         keep the first ``keep_cols`` time columns, let the prior write the
@@ -208,6 +254,7 @@ class InferenceService:
         if n < 1:
             raise ValueError("need at least one image to continue, got an empty batch")
         b = _bucket(n)
+        y = self._prior_labels(label, n, b)
         if b > n:
             x = np.concatenate([x, np.zeros((b - n, *item), np.float32)])
         mask = np.zeros((s, s), bool)
@@ -215,12 +262,13 @@ class InferenceService:
         with torch.inference_mode():
             codes = self.model.encode_indices(self._to_device(x))
         idx = sample_codes_autoregressive(self.prior, seed, b, s, temperature=temperature, top_p=top_p,
-                                          known=codes, known_mask=mask)
+                                          y=y, known=codes, known_mask=mask)
         with torch.inference_mode():
             return self.model.decode_indices(idx).float().cpu().numpy()[:n]
 
-    def interpolate(self, a: np.ndarray, b: np.ndarray, steps: int, mode: str) -> np.ndarray:
-        """The latent path [steps, H, W, C] between two [H, W, C] images."""
+    def interpolate(self, a: np.ndarray, b: np.ndarray, steps: int, mode: str, label=None) -> np.ndarray:
+        """The latent path [steps, H, W, C] between two [H, W, C] images
+        (under one ``label`` for a conditional model)."""
         from midi_vae_tpu_torch.evaluation.inference import interpolate
 
         # this path runs outside the micro-batcher: bound the result here
@@ -230,8 +278,9 @@ class InferenceService:
         for name, arr in (("a", a), ("b", b)):
             if tuple(arr.shape) != expect:
                 raise ValueError(f"'{name}' must have shape {expect}, got {tuple(arr.shape)}")
+        yk = self._labels_on_device(self.validate_labels(label, 1))
         ends = self._to_device(np.stack([a, b]))
-        return interpolate(self.model, ends[:1], ends[1:], steps=steps, mode=mode)[:, 0].float().cpu().numpy()
+        return interpolate(self.model, ends[:1], ends[1:], steps=steps, mode=mode, **yk)[:, 0].float().cpu().numpy()
 
     def close(self):
         self.reconstruct.close()
@@ -269,8 +318,8 @@ def make_handler(service: InferenceService):
                     "device": str(service.device),
                     "image_size": service.image_size,
                     "latent_dim": service.latent_dim,
-                    "conditional": False,
-                    "num_classes": 0,
+                    "conditional": service.conditional,
+                    "num_classes": service.num_classes,
                     "prior": service.prior_info,
                     "batches_dispatched": service.reconstruct.batches_dispatched,
                     "requests_served": service.reconstruct.requests_served,
@@ -297,15 +346,24 @@ def make_handler(service: InferenceService):
                 if not isinstance(payload, dict):
                     raise ValueError("a JSON body must be an object")
 
-                # labels of conditional models are not ported yet
-                if {"label", "labels"} & (set(query) | set(payload)):
-                    raise ValueError("this checkpoint is unconditional; drop the label field")
+                def req_labels():
+                    """JSON 'labels' (one per row) or 'label' (a scalar), else
+                    ?labels=csv or ?label= on the query string (the binary wire's only channel)."""
+                    if not binary_req and "labels" in payload:
+                        return payload["labels"]
+                    if not binary_req and "label" in payload:
+                        return payload["label"]
+                    if "labels" in query:
+                        return [int(v) for v in query["labels"][0].split(",")]
+                    if "label" in query:
+                        return int(query["label"][0])
+                    return None
 
                 if route == "/sample":
                     if binary_req:
                         raise ValueError("/sample takes JSON parameters ({'n', 'seed'}), not a tensor body")
                     top_p = payload.get("top_p")
-                    out = service.sample(int(payload.get("n", 1)), int(payload.get("seed", 0)),
+                    out = service.sample(int(payload.get("n", 1)), int(payload.get("seed", 0)), label=req_labels(),
                                          temperature=float(payload.get("temperature", 1.0)),
                                          top_p=float(top_p) if top_p is not None else None)
                     self._npy(200, out) if wants_npy else self._json(200, {"samples": out.tolist()})
@@ -324,13 +382,13 @@ def make_handler(service: InferenceService):
                         b = np.asarray(payload["b"], np.float32)
                         steps = int(payload.get("steps", 8))
                         mode = "slerp" if payload.get("slerp") else "lerp"
-                    out = service.interpolate(a, b, steps=steps, mode=mode)
+                    out = service.interpolate(a, b, steps=steps, mode=mode, label=req_labels())
                     self._npy(200, out) if wants_npy else self._json(200, {"path": out.tolist()})
                 elif route == "/continue":
                     # the rolls in the body; the scalars on the JSON body, or on the query string of a binary one
                     if binary_req:
                         x = np.asarray(npy_loads(raw), np.float32)
-                        params = {k: v[0] for k, v in query.items()}
+                        params = {k: v[0] for k, v in query.items() if k not in ("label", "labels")}
                     else:
                         x = np.asarray(payload["images"], np.float32)
                         params = payload
@@ -343,7 +401,7 @@ def make_handler(service: InferenceService):
                         raise ValueError(f"at most {self.MAX_REQUEST_ITEMS} images per request, got {len(x)}")
                     top_p = params.get("top_p")
                     out = service.continue_rolls(
-                        x, int(params["keep_cols"]), seed=int(params.get("seed", 0)),
+                        x, int(params["keep_cols"]), seed=int(params.get("seed", 0)), label=req_labels(),
                         temperature=float(params.get("temperature", 1.0)),
                         top_p=float(top_p) if top_p is not None else None,
                     )
@@ -354,7 +412,7 @@ def make_handler(service: InferenceService):
                         x = x[None]
                     if len(x) > self.MAX_REQUEST_ITEMS:
                         raise ValueError(f"at most {self.MAX_REQUEST_ITEMS} images per request, got {len(x)}")
-                    out = getattr(service, route[1:])(x)
+                    out = getattr(service, route[1:])(x, service.validate_labels(req_labels(), len(x)))
                     if wants_npy:
                         self._npy(200, out)  # /encode: [N, 2·latent_dim], mu ‖ log_var
                     elif route == "/reconstruct":

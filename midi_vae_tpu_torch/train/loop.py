@@ -9,7 +9,9 @@ PyTorch on ``device`` (CUDA unless the caller asks for the CPU); with
 ``config.fused`` its loss and reparameterization run the kernels K1–K3.
 VQ models (``VQVAE``, ``FoldedVQVAE``) train under the VQ objective, which
 refuses ``--fused``, and report their codebook health (perplexity, active
-codes) with every validation and the final test.
+codes) with every validation and the final test. ``--conditional`` builds
+the Gaussian model over the dataset's classes and passes the batch labels
+to every train, eval and grid forward.
 
 Options the port does not have yet raise ``NotImplementedError`` naming
 their ROADMAP item (:func:`check_ported`), before any work is done.
@@ -50,7 +52,7 @@ from midi_vae_tpu_torch.io.checkpoint import (
 from midi_vae_tpu_torch.io.logging import MetricLogger, PhaseTimer, generate_id, print_epoch_summary, write_png
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.registry import VQ_ARCHS, build_model
-from midi_vae_tpu_torch.models.vae import param_group_label
+from midi_vae_tpu_torch.models.vae import label_kwarg, param_group_label
 from midi_vae_tpu_torch.models.vq import codebook_metrics
 from midi_vae_tpu_torch.train.config import TrainConfig
 from midi_vae_tpu_torch.train.optim import build_optimizer, scale_lr
@@ -66,23 +68,17 @@ def check_ported(config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for an option the port does not have
     yet, naming its ROADMAP item (Queue 1)."""
     gaps = [
-        (config.loss_type == "beta-tc", "the beta-TC objective", 17),
-        (config.grad_accum != 1, "--grad-accum > 1", 7),
         (config.scan_steps != 1, "--scan-steps > 1 (scan-chunked epochs)", 9),
         (config.checkpoint_backend == "orbax", "--checkpoint-backend orbax", 10),
         ((config.num_devices or 1) != 1, "--num-devices > 1 (multi-GPU data parallelism)", 16),
         (config.mesh_slices, "--mesh-slices (multi-slice data parallelism)", 16),
         (config.step_impl != "auto", "--step-impl shard_map", 16),
-        (config.conditional, "--conditional", 17),
         (config.stem != "conv" or config.head != "deconv", "--stem s2d / --head d2s", 17),
         (config.norm != "batch", f"--norm {config.norm}", 17),
         (config.remat, "--remat", 17),
         (config.torch_compat, "--torch-compat", 17),
         (config.verbose, "--verbose (forward range tracing)", 17),
         (config.compilation_cache, "--compilation-cache", 17),
-        (config.optimizer.lower() != "adamw", f"--optimizer {config.optimizer}", 17),
-        (config.scheduler.lower() not in ("onecycle", "constant"), f"--scheduler {config.scheduler}", 17),
-        (config.arch.lower() not in ("vanillavae", "foldedvae", *VQ_ARCHS), f"--model {config.arch}", 17),
     ]
     for missing, what, item in gaps:
         if missing:
@@ -123,7 +119,7 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     start_epoch = 1 if checkpoint_payload is None else int(checkpoint_payload["epoch"]) + 1
 
     # MODEL SIZING ===========================================================
-    _, _, img_channels = image_dataset_sizes(config.dataset_name)
+    n_class, _, img_channels = image_dataset_sizes(config.dataset_name)
     if config.image_size is None:
         config.image_size = 32
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
@@ -167,6 +163,24 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         (tuple(transform_train.mean), tuple(transform_train.std)) if config.bce_targets == "raw" else None
     )
     seed = config.seed if config.seed is not None else int(time.time()) % 100000
+    if config.conditional and not config.num_classes:
+        # resolved once and kept in the config, so the checkpoint rebuilds the
+        # same model: the registry's count, else (by-folder datasets) max label + 1
+        if n_class and n_class > 0:
+            config.num_classes = int(n_class)
+        else:
+            label_arrays = [
+                np.asarray(ds.labels)
+                for ds in (dataset_train, dataset_val, dataset_test)
+                if getattr(ds, "labels", None) is not None and len(ds.labels)
+            ]
+            if not label_arrays:
+                raise ValueError(
+                    f"--conditional needs labels, but dataset '{config.dataset_name}' "
+                    "exposes none (streaming corpus without a label table?)"
+                )
+            config.num_classes = int(max(int(a.max()) for a in label_arrays)) + 1
+        print(f"Conditional VAE over {config.num_classes} classes")
     # the VQ models train only under the VQ objective, and it only them
     if config.arch.lower() in VQ_ARCHS:
         if config.loss_type == "elbo":
@@ -187,6 +201,8 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         fused_reparam=config.fused,
         fold=config.fold,
         output_logit_bias=output_bias,
+        norm=config.norm,
+        num_classes=config.num_classes if config.conditional else 0,
         codebook_size=config.codebook_size,
         vq_decay=config.vq_decay,
         seed=seed,
@@ -238,6 +254,8 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         target_denorm=target_denorm,
         fused_loss=config.fused,
         loss_type=config.loss_type,
+        tc_beta=config.tc_beta,
+        dataset_size=len(dataset_train),
         grad_accum=config.grad_accum,
         ema_decay=config.ema_decay,
     )
@@ -246,9 +264,10 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         occupancy_denorm=(tuple(transform_eval.mean), tuple(transform_eval.std)),
     )
 
-    # model forwards by kind over the run: train steps, reconstruction grids
-    # and eval batches (what a caller needs to account for kernel launches)
-    forwards = {"train_steps": 0, "grid": 0, "eval_batches": 0}
+    # model forwards by kind over the run: train steps, their forwards (one per
+    # micro-batch), reconstruction grids and eval batches (what a caller needs
+    # to account for kernel launches)
+    forwards = {"train_steps": 0, "train_forwards": 0, "grid": 0, "eval_batches": 0}
 
     def run_eval(loader, partition_name: str) -> dict:
         """``evaluate`` on the current weights: the EMA averages when tracking is on."""
@@ -545,8 +564,10 @@ def train_one_epoch(
     forwards: Optional[dict] = None,
 ):
     """Train one epoch; returns (stats, state, total_step, n_samples_seen).
-    ``forwards``, when given, counts the epoch's train steps and
-    reconstruction-grid forwards into its ``train_steps`` and ``grid``.
+    ``forwards``, when given, counts the epoch's train steps, their
+    forwards (``grad_accum`` per step) and reconstruction-grid forwards into
+    its ``train_steps``, ``train_forwards`` and ``grid``. The batch labels
+    reach the step (and the grid) of a conditional model.
 
     The loss sum stays on the device; the host reads the device at print
     and log points only. ``stats`` holds the mean loss and the epoch's
@@ -577,9 +598,10 @@ def train_one_epoch(
             break
         batch_idx += 1
         timer.mark("device_step")
-        state, lo, grad_norm = train_step(state, batch.x, epoch_seed)
+        state, lo, grad_norm = train_step(state, batch.x, epoch_seed, y=batch.y)
         if forwards is not None:
             forwards["train_steps"] += 1
+            forwards["train_forwards"] += config.grad_accum
         loss_sum += lo.loss.float()
         n_samples_seen += world_batch
         steps_since_log += 1
@@ -630,7 +652,7 @@ def train_one_epoch(
 
         # reconstruction grids of the first two batches
         if config.log_images and batch_idx <= 1 and (logger.wandb_run is not None or logger.output_dir):
-            _log_reconstruction_grid(logger, model, batch.x, state.step, loader.dataset.transform)
+            _log_reconstruction_grid(logger, model, batch.x, state.step, loader.dataset.transform, y=batch.y)
             if forwards is not None:
                 forwards["grid"] += 1
 
@@ -640,10 +662,11 @@ def train_one_epoch(
 
 
 @torch.no_grad()
-def _log_reconstruction_grid(logger, model, x, step: int, spec=None) -> None:
+def _log_reconstruction_grid(logger, model, x, step: int, spec=None, y=None) -> None:
     """Input|reconstruction pairs of up to 8 samples, four pairs a row: to
-    wandb when it is on, else a PNG next to the checkpoint."""
-    recon = model(x[:8], train=False, seed=0).output.float()
+    wandb when it is on, else a PNG next to the checkpoint. A conditional
+    model reconstructs under the labels ``y[:8]``."""
+    recon = model(x[:8], train=False, seed=0, **label_kwarg(model, None if y is None else y[:8])).output.float()
     inputs = denormalize(spec, x[:8]) if spec is not None else x[:8]
     grid = reconstruction_grid(inputs, recon).cpu().numpy()
     if logger.wandb_run is not None:

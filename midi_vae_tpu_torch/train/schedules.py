@@ -3,8 +3,10 @@
 
 torch's ``OneCycleLR`` formula (cosine anneal, two phases, ``pct_start``
 0.3, ``div_factor`` 25, ``final_div_factor`` 1e4) and its β1
-counter-cycle, as pure ``step -> value`` functions of a host integer
-step. The optimizer reads them before each step (``train/optim.py``).
+counter-cycle, a constant, a cosine decay to 0 over the run and torch's
+``StepLR`` (×``gamma`` every ``step_size`` steps), as pure ``step ->
+value`` functions of a host integer step. The optimizer reads them before
+each step (``train/optim.py``).
 
 The arithmetic is float32, as in the JAX package: near the start of the
 warm-up the formula cancels (``max_lr − 0.96·max_lr``), so a float64
@@ -82,12 +84,39 @@ def constant_lr(lr: float) -> Schedule:
     return sched
 
 
-def lr_schedule(name: str, max_lr: float, total_steps: int) -> Schedule:
-    """A named LR schedule (case-insensitive): ``onecycle`` or ``constant``;
-    the JAX package's ``cosine`` and ``step`` are not ported yet."""
+def cosine_lr(max_lr: float, total_steps: int, final_lr: float = 0.0) -> Schedule:
+    """Cosine from ``max_lr`` at step 0 to ``final_lr`` at ``total_steps``, then flat."""
+
+    def sched(step: int) -> float:
+        pct = min(max(_F32(step) / _F32(max(total_steps, 1)), _F32(0.0)), _F32(1.0))
+        return _annealing_cos(max_lr, final_lr, pct)
+
+    return sched
+
+
+def step_decay_lr(max_lr: float, step_size: int, gamma: float = 0.1) -> Schedule:
+    """torch ``StepLR``: ``max_lr·gamma^floor(step/step_size)``."""
+
+    def sched(step: int) -> float:
+        k = np.floor(_F32(step) / _F32(step_size))
+        return float(_F32(max_lr) * _F32(gamma) ** k)
+
+    return sched
+
+
+def lr_schedule(
+    name: str, max_lr: float, total_steps: int, *, step_size: int = 1000, gamma: float = 0.1
+) -> Schedule:
+    """A named LR schedule (case-insensitive): ``onecycle``, ``constant``,
+    ``cosine`` or ``step`` (``step_size`` and ``gamma`` at the JAX
+    package's defaults, which the train config does not set)."""
     key = name.lower()
     if key == "onecycle":
         return onecycle_lr(max_lr, total_steps)
     if key == "constant":
         return constant_lr(max_lr)
-    raise NotImplementedError(f"Scheduler {name} is not ported to the PyTorch package yet.")
+    if key == "cosine":
+        return cosine_lr(max_lr, total_steps)
+    if key == "step":
+        return step_decay_lr(max_lr, step_size, gamma)
+    raise NotImplementedError(f"Scheduler {name} not supported.")

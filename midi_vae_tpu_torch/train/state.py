@@ -11,8 +11,15 @@ the parameters (``TrainState.ema_params``), the weights evaluation and
 best-model selection then use. With a VQ model (``loss_type="vq"``) the
 forward also updates the quantizer's EMA buffers, as it does BatchNorm's
 running statistics: they ride the state dict and the checkpoints, and the
-weights' EMA covers the parameters only, as the JAX package's does. Not
-ported yet: ``grad_accum`` > 1 and the β-TC objective.
+weights' EMA covers the parameters only, as the JAX package's does.
+
+``grad_accum=n`` splits each batch (and its labels) into n sequential
+micro-batches with one ``backward()`` each: the gradients sum in
+``.grad`` and are scaled by 1/n before the norm, the clip and the single
+optimizer update, as the JAX package's ``accumulate_grads`` scales its
+sum. BatchNorm's running statistics and a VQ quantizer's EMA buffers
+chain from micro to micro, since each train-mode forward updates them.
+Conditional models take their labels with the batch (``y=``).
 """
 
 from __future__ import annotations
@@ -25,10 +32,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from midi_vae_tpu_torch.core.rng import derive_step_seed
+from midi_vae_tpu_torch.core.rng import derive_micro_seed, derive_step_seed
 from midi_vae_tpu_torch.core.types import LossOutput
 from midi_vae_tpu_torch.losses.elbo import elbo_loss
+from midi_vae_tpu_torch.losses.tcvae import beta_tc_elbo_loss
 from midi_vae_tpu_torch.losses.vq import vq_loss
+from midi_vae_tpu_torch.models.vae import label_kwarg
 from midi_vae_tpu_torch.ops.fused_elbo import fused_elbo_terms
 from midi_vae_tpu_torch.train.optim import OptimizerBundle, set_step_hyperparams
 
@@ -114,9 +123,12 @@ def make_loss(
     free_bits: Optional[float] = None,
     pos_weight: Optional[float] = None,
     target_denorm=None,
+    tc_beta: float = 6.0,
+    dataset_size: int = 1,
 ) -> Callable:
     """Build the training objective ``(ModelOutput, kld_weight) → LossOutput``,
-    validating option compatibility as midi_vae_tpu/train/state.py:195-206 does."""
+    validating option compatibility as midi_vae_tpu/train/state.py:195-206 does.
+    ``tc_beta`` and ``dataset_size`` configure the β-TC objective."""
     if loss_type not in ("elbo", "beta-tc", "vq"):
         raise ValueError(f"unknown loss_type: {loss_type}")
     if loss_type != "elbo" and fused_loss:
@@ -129,13 +141,21 @@ def make_loss(
         raise ValueError("the fused BCE implements the unweighted reference formula; drop --fused for --bce-pos-weight")
     if target_denorm is not None and fused_loss:
         raise ValueError("the fused BCE consumes normalized targets; drop --fused for --bce-targets raw")
-    if loss_type == "beta-tc":
-        raise NotImplementedError("loss_type='beta-tc' is not ported to the PyTorch package yet (ROADMAP Queue 1 item 17)")
 
     def _loss(out, w: float) -> LossOutput:
         if loss_type == "vq":
             # the scheduled "KL weight" is the commitment β of this objective
             return vq_loss(out, commitment_weight=w, pos_weight=pos_weight, target_denorm=target_denorm)
+        if loss_type == "beta-tc":
+            return beta_tc_elbo_loss(
+                out,
+                tc_beta=tc_beta,
+                dataset_size=dataset_size,
+                kld_weight=w,
+                log_var_clamp=log_var_clamp,
+                pos_weight=pos_weight,
+                target_denorm=target_denorm,
+            )
         if not fused_loss:
             return elbo_loss(
                 out,
@@ -173,22 +193,26 @@ def make_train_step(
     target_denorm=None,
     fused_loss: bool = False,
     loss_type: str = "elbo",
+    tc_beta: float = 6.0,
+    dataset_size: int = 1,
     grad_accum: int = 1,
     ema_decay: Optional[float] = None,
 ) -> Callable:
-    """Build the train step ``(state, x, epoch_seed, *, eps=None) → (state, LossOutput, grad_norm)``.
+    """Build the train step ``(state, x, epoch_seed, *, y=None, eps=None) →
+    (state, LossOutput, grad_norm)``.
 
-    ``x`` is an NHWC batch on the model's device. The reparameterization
-    seed of each step is :func:`derive_step_seed` of (``epoch_seed``,
-    ``state.step``); ``eps`` replaces the draw (tests inject the JAX side's
-    noise with it). ``fused_loss=True`` takes the BCE through the K1/K2
-    kernels (``ops/fused_elbo.py``). ``grad_norm`` is the global gradient
-    norm before clipping.
+    ``x`` is an NHWC batch on the model's device and ``y`` its int labels,
+    passed to conditional models only. The reparameterization seed of each
+    step is :func:`derive_step_seed` of (``epoch_seed``, ``state.step``),
+    and micro-batch i of an accumulated step draws with
+    :func:`derive_micro_seed` of (that seed, i). ``eps`` replaces the draw
+    (tests inject the JAX side's noise with it): one tensor, or with
+    ``grad_accum`` > 1 a list of one per micro-batch. ``fused_loss=True``
+    takes the BCE through the K1/K2 kernels (``ops/fused_elbo.py``).
+    ``grad_norm`` is the global gradient norm before clipping.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if grad_accum != 1:
-        raise NotImplementedError("grad_accum > 1 is not ported to the PyTorch package yet (ROADMAP Queue 1 item 7)")
     _loss = make_loss(
         loss_type=loss_type,
         fused_loss=fused_loss,
@@ -196,15 +220,41 @@ def make_train_step(
         free_bits=free_bits,
         pos_weight=pos_weight,
         target_denorm=target_denorm,
+        tc_beta=tc_beta,
+        dataset_size=dataset_size,
     )
 
-    def step(state: TrainState, x: torch.Tensor, epoch_seed: int, *, eps: Optional[torch.Tensor] = None):
+    def forward_backward(model, x, y, seed, eps, w) -> LossOutput:
+        out = model(x, train=True, seed=seed, eps=eps, **label_kwarg(model, y))
+        lo = _loss(out, w)
+        lo.loss.backward()
+        return dataclasses.replace(lo, loss=lo.loss.detach())
+
+    def step(state: TrainState, x: torch.Tensor, epoch_seed: int, *, y=None, eps=None):
         model, bundle = state.model, state.optimizer
         set_step_hyperparams(bundle, state.step)
         model.zero_grad(set_to_none=True)  # also the frozen groups, which are outside the optimizer
-        out = model(x, train=True, seed=derive_step_seed(epoch_seed, state.step), eps=eps)
-        lo = _loss(out, kl_schedule(state.step))
-        lo.loss.backward()
+        step_seed = derive_step_seed(epoch_seed, state.step)
+        w = kl_schedule(state.step)
+        if grad_accum == 1:
+            lo = forward_backward(model, x, y, step_seed, eps, w)
+        else:
+            n, b = grad_accum, x.shape[0]
+            if b % n:
+                raise ValueError(f"batch size {b} not divisible by grad_accum={n}")
+            m = b // n
+            sums = None
+            for i in range(n):
+                part = forward_backward(
+                    model, x[i * m : (i + 1) * m], None if y is None else y[i * m : (i + 1) * m],
+                    derive_micro_seed(step_seed, i), None if eps is None else eps[i], w,
+                )
+                fields = [getattr(part, f.name) for f in dataclasses.fields(LossOutput)]
+                sums = fields if sums is None else [a + v for a, v in zip(sums, fields)]
+            # the sums scaled by 1/n in f32, as accumulate_grads scales them
+            inv = float(np.float32(1.0 / n))
+            lo = LossOutput(*(v * inv for v in sums))
+            torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         grad_norm = _global_norm(grads)
         if bundle.grad_clip is not None:
@@ -219,7 +269,6 @@ def make_train_step(
                 ema = _param_copies(model)
             else:
                 ema_update(ema, model, ema_decay)
-        lo = dataclasses.replace(lo, loss=lo.loss.detach())
         return TrainState(model=model, optimizer=bundle, step=state.step + 1, ema_params=ema), lo, grad_norm
 
     return step

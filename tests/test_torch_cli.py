@@ -29,7 +29,9 @@ from midi_vae_tpu.train.config import from_yaml as jax_from_yaml
 from midi_vae_tpu_torch.cli.train import args_to_config, cli, get_parser
 from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
 from midi_vae_tpu_torch.train.config import TrainConfig, from_yaml, read_yaml
+from midi_vae_tpu_torch.train import schedules
 from midi_vae_tpu_torch.train.loop import run
+from midi_vae_tpu_torch.train.optim import scale_lr
 from midi_vae_tpu_torch.train.state import state_dict
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -184,11 +186,13 @@ def test_counters(first_run):
     assert r["steps_per_epoch"] == steps
     assert r["total_step"] == config.epochs * steps and r["state"].step == r["total_step"]
     assert r["n_samples_seen"] == r["total_step"] * config.batch_size_per_device
-    # forwards: a grid for each of an epoch's first two batches; a val sweep
-    # per epoch (val is test here), then the final test and train sweeps
+    # forwards: one train forward per step (no grad_accum); a grid for each of
+    # an epoch's first two batches; a val sweep per epoch (val is test here),
+    # then the final test and train sweeps
     batches = lambda n: -(-n // config.batch_size_per_device)  # noqa: E731
     eval_batches = (config.epochs + 1) * batches(r["corpus"]["test"]) + batches(r["corpus"]["train"])
-    assert r["forwards"] == {"train_steps": r["total_step"], "grid": 2 * config.epochs, "eval_batches": eval_batches}
+    assert r["forwards"] == {"train_steps": r["total_step"], "train_forwards": r["total_step"],
+                             "grid": 2 * config.epochs, "eval_batches": eval_batches}
 
 
 def test_checkpoint_metrics_and_grids_written(first_run):
@@ -330,9 +334,42 @@ def test_cli_runs_on_the_gpu_unless_asked_for_the_cpu():
         (dict(dataset_name="rrd:/x.rrd"), 9),
     ],
 )
-def test_unported_options_raise_with_their_roadmap_item(tmp_path, overrides, item):
+def test_unported_options_raise_with_their_roadmap_item(tmp_path, monkeypatch, overrides, item):
+    """Options still open raise naming their ROADMAP item. The cases of items
+    7 and 17a–c (grad_accum, β-TC and MLPVAE, the optimizers and schedules,
+    conditional models) are ported: each trains one epoch on a 256-image
+    corpus and meets its own check."""
+    check = next((c for options, c in _PORTED_OPTIONS if options == overrides), None)
+    if check is not None:
+        monkeypatch.setitem(fetch.SYNTHETIC_SIZES, "vae-lines-synthetic", 256)
+        r = run(small_config(tmp_path, models_dir=None, epochs=1, **overrides), device="cpu")
+        assert np.isfinite(r["train"]["loss"]) and np.isfinite(r["final_test"]["cross-entropy"])
+        assert check(r)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\b"):
         run(small_config(tmp_path, models_dir=None, **overrides), device="cpu")
+
+
+def _lr_now(r):
+    return r["state"].optimizer.optimizer.param_groups[0]["lr"]
+
+
+def _accumulated(r):
+    return r["forwards"]["train_forwards"] == 2 * r["forwards"]["train_steps"] > 0
+
+
+# (options, check of the run's results) for the options ported since they were refused here
+_PORTED_OPTIONS = [
+    (dict(arch="VQVAE", grad_accum=2), lambda r: _accumulated(r) and r["final_test"]["active-codes"] > 0),
+    (dict(loss_type="beta-tc"), lambda r: np.isfinite(r["final_test"]["kl"])),
+    (dict(grad_accum=2), _accumulated),
+    # vae-lines-synthetic labels are line counts, 1 or 2: max + 1 = 3 classes
+    (dict(conditional=True), lambda r: r["state"].model.num_classes == 3),
+    (dict(optimizer="Lion"), lambda r: type(r["state"].optimizer.optimizer).__name__ == "Lion"),
+    (dict(scheduler="cosine"), lambda r: r["state"].optimizer.optimizer.param_groups[0]["lr"] == pytest.approx(
+        schedules.cosine_lr(scale_lr(0.02, 128), r["total_step"])(r["total_step"] - 1))),
+    (dict(arch="MLPVAE"), lambda r: type(r["state"].model).__name__ == "MLPVAE"),
+]
 
 
 def test_multihost_flag_raises():

@@ -6,8 +6,9 @@ latent 4, EMA on) writes the checkpoint they read.
 The parsers are held to the JAX package's flag for flag; each mode runs to
 completion with finite output in [0, 1], PNGs and readable ``.mid`` files
 written; flags of features not ported yet raise ``NotImplementedError``
-naming their ROADMAP item, and the two-stage VQ flags refuse a Gaussian
-checkpoint (their own path is ``tests/test_torch_two_stage_cli.py``).
+naming their ROADMAP item, and the two-stage VQ flags and ``--label``
+refuse an unconditional Gaussian checkpoint (their own paths are
+``tests/test_torch_two_stage_cli.py`` and ``tests/test_torch_conditional.py``).
 """
 
 import json
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import midi_vae_tpu_torch.data.fetch as fetch
 from midi_vae_tpu.cli.evaluate import get_parser as jax_evaluate_parser
 from midi_vae_tpu.cli.generate import get_parser as jax_generate_parser
 from midi_vae_tpu_torch.cli import evaluate, generate
@@ -132,19 +134,30 @@ def test_train_final_iwae_and_mig(tmp_path):
     (["--prior", "p.pt"], SystemExit, "VQVAE checkpoints only"),
     (["--mode", "continue"], SystemExit, "needs --prior"),
     (["--keep-cols", "4"], SystemExit, "--mode continue only"),
-    (["--label", "1"], NotImplementedError, "ROADMAP Queue 1 item 17\\b"),
+    (["--label", "1"], SystemExit, "needs a conditional checkpoint"),
 ], ids=["prior", "continue", "keep_cols", "label"])
 def test_unported_generate_flags_raise_with_their_roadmap_item(trained, argv, error, match):
-    """--label (conditional models) is not ported; the two-stage flags are,
-    and refuse this Gaussian checkpoint as the JAX CLI does."""
+    """The two-stage flags and --label are ported, and refuse this
+    unconditional Gaussian checkpoint as the JAX CLI does."""
     with pytest.raises(error, match=match):
         generate.cli(["--checkpoint", trained["ckpt"], "--cpu"] + argv)
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"arch": "VQVAE", "stem": "s2d"}, 17), ({"conditional": True}, 17), ({"torch_compat": True}, 17), ({"norm": "group"}, 17),
+    ({"arch": "VQVAE", "stem": "s2d"}, 17), (None, None), ({"torch_compat": True}, 17), ({"norm": "group"}, 17),
 ], ids=["vq", "conditional", "torch_compat", "norm"])
-def test_unported_checkpoints_raise_with_their_roadmap_item(trained, tmp_path, overrides, item):
+def test_unported_checkpoints_raise_with_their_roadmap_item(trained, tmp_path, monkeypatch, overrides, item):
+    """Checkpoints of variants still open raise naming their ROADMAP item. A
+    conditional checkpoint is ported: one trained on a 256-image corpus
+    evaluates under the batch labels, IWAE and MIG included."""
+    if overrides is None:
+        monkeypatch.setitem(fetch.SYNTHETIC_SIZES, "vae-lines-synthetic", 256)
+        train_cli(TRAIN + ["--conditional", "--models-dir", str(tmp_path / "m"), "--run-name", "c", "--run-id", "1"])
+        ckpt = tmp_path / "m" / "vae-lines-synthetic" / "c__1" / "checkpoint_latest.pt"
+        assert load_checkpoint(str(ckpt))["config"]["num_classes"] == 3
+        res = evaluate.cli(["--checkpoint", str(ckpt), "--cpu", "--iwae-samples", "2", "--mig"])["test"]
+        assert all(np.isfinite(res[k]) for k in ("cross-entropy", "kl", "iwae-2")) and 0.0 <= res["mig"] <= 1.0
+        return
     payload = load_checkpoint(trained["ckpt"])
     payload["config"].update(overrides)
     path = str(tmp_path / "c.pt")

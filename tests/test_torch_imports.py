@@ -43,6 +43,10 @@ _INFERENCE_MODULES = (
 _TWO_STAGE_MODULES = ("cli/train_prior.py", "losses/vq.py", "models/prior.py", "models/vq.py")
 
 
+# the training variants (the β-TC objective, MLPVAE, the optax-rule optimizers and schedules)
+_VARIANT_MODULES = ("losses/tcvae.py", "models/mlp.py", "train/optim.py", "train/schedules.py")
+
+
 def test_inference_modules_are_among_the_guarded_sources():
     guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(_INFERENCE_MODULES) <= guarded
@@ -51,6 +55,11 @@ def test_inference_modules_are_among_the_guarded_sources():
 def test_two_stage_modules_are_among_the_guarded_sources():
     guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(_TWO_STAGE_MODULES) <= guarded
+
+
+def test_variant_modules_are_among_the_guarded_sources():
+    guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(_VARIANT_MODULES) <= guarded
 
 
 def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
@@ -65,8 +74,10 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
         "names = [m.name for m in pkgutil.walk_packages(midi_vae_tpu_torch.__path__, 'midi_vae_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 50
+    imported = out.stdout.split()
+    assert len(imported) >= 50
+    assert {"midi_vae_tpu_torch." + m[:-3].replace("/", ".") for m in _VARIANT_MODULES} <= set(imported)

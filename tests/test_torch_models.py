@@ -210,7 +210,7 @@ def test_build_model_needs_a_gpu_unless_told_cpu(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [dict(arch="VanillaVAE", stem="s2d"), dict(arch="VanillaVAE", head="d2s"), dict(arch="FoldedVAE", norm="group"),
-     dict(arch="FoldedVAE", num_classes=3)],
+     dict(arch="VanillaVAE", torch_compat=True)],
 )
 def test_unported_variants_raise(kwargs):
     arch = kwargs.pop("arch")

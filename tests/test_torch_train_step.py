@@ -166,15 +166,26 @@ def test_loss_matches_jax(fused, pos_weight, log_var_clamp):
         (dict(pos_weight=2.0, fused_loss=True), ValueError),
         (dict(target_denorm=((0.5,), (1.0,)), fused_loss=True), ValueError),
         (dict(loss_type="vq", log_var_clamp=(-1.0, 1.0)), ValueError),
-        (dict(loss_type="beta-tc"), NotImplementedError),
+        # ids kept from when the port refused these three options; they build working steps now
+        pytest.param(dict(loss_type="beta-tc"), None, id="kwargs6-NotImplementedError"),
         (dict(grad_accum=0), ValueError),
-        (dict(grad_accum=2), NotImplementedError),
-        (dict(loss_type="vq", grad_accum=2), NotImplementedError),
+        pytest.param(dict(grad_accum=2), None, id="kwargs8-NotImplementedError"),
+        pytest.param(dict(loss_type="vq", grad_accum=2), None, id="kwargs9-NotImplementedError"),
     ],
 )
 def test_step_option_checks(kwargs, error):
-    with pytest.raises(error):
-        make_train_step(kl_schedules.constant(1.0), **kwargs)
+    """Incompatible options raise; β-TC and grad_accum build a step that
+    takes one finite step (on a VQ model for the VQ objective)."""
+    if error is not None:
+        with pytest.raises(error):
+            make_train_step(kl_schedules.constant(1.0), **kwargs)
+        return
+    arch = "FoldedVQVAE" if kwargs.get("loss_type") == "vq" else "FoldedVAE"
+    model = build_model(arch, device="cpu", **MODEL_KW)
+    state = create_train_state(model, build_optimizer(model, param_group_label, lr=1e-3, total_steps=100))
+    x = torch.from_numpy((np.random.default_rng(0).uniform(size=(BATCH, 32, 32, 1)) > 0.7).astype(np.float32))
+    state, lo, grad_norm = make_train_step(kl_schedules.constant(0.25), **kwargs)(state, x, 0)
+    assert state.step == 1 and np.isfinite(float(lo.loss)) and float(grad_norm) > 0
 
 
 def test_make_loss_unfused_free_bits_not_ported():
