@@ -95,9 +95,35 @@ From the repository root. It
    fused run (bf16 micro-batch of 50, f32 conditional batch of 128, f32
    MLPVAE batch of 100). No fused-ELBO kernel launches on the β-TC, VQ and
    optimizer runs;
-11. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
-   accumulated run, ``variant_launches`` for every run of item 10), the
-   card line again, and as the last line ``{"ok": true, "device": {...}}``.
+11. drives the remaining model variants at full width: the flagship fused
+   step (train phase's configuration) under ``--norm batch-sub4`` for 30
+   steps, under ``--remat`` for 10 and under ``--norm none`` with and
+   without ``--remat`` for 10 each (K1–K3 once per step, the first fused
+   step against the unfused one, samples/s beside the train phase's
+   window, device busy share and BatchNorm's share of device time against
+   the same step with ``--norm none``, peak memory); remat on against off
+   (loss within 1e-5 relative, BatchNorm buffers identical); VanillaVAE at
+   its reference widths, 128 px, through the train CLI for one epoch each
+   plain, plain ``--fused``, ``--stem s2d --head d2s --fused``, ``--norm
+   group`` and ``--norm none`` (card against CPU, 1e-4; the step timed at
+   batch 100, each variant's device time against the plain step's); a
+   reference ``state_dict`` through a torch_compat model on the card
+   (bitwise back, forward against the CPU) and one ``--torch-compat``
+   epoch; K1–K3 against their plain versions at the fused runs' shapes;
+12. exports the fused CLI run's ``best_model.pt`` with
+   ``interop/aot_export.py`` for ``cuda`` and serves it with ``serve
+   --artifact``: every endpoint within 1e-5 of the checkpoint server,
+   export and load times, program sizes, single-roll ``/reconstruct``
+   p50/p99 beside the checkpoint server's; exports the VQ run with its
+   transformer prior and serves it: the loader's code draws equal to
+   ``sample_codes_autoregressive`` for the seed, ``/sample`` within 1e-5 of
+   the checkpoint server with ``--prior``. No fused-ELBO kernel launches
+   there;
+13. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
+   accumulated run, ``variant_launches`` for every run of item 10,
+   ``model_variant_launches`` for item 11, ``artifact_launches`` for item
+   12), the card line again, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
 without a CUDA device. TF32 is off for every comparison (cuDNN and
@@ -508,8 +534,10 @@ def train_phase(dev):
         f"in {sum(step_ms):.3f} ms); step time median {med:.3f} ms, min {min(step_ms):.3f} ms, "
         f"max {max(step_ms):.3f} ms over {TRAIN_STEPS} steps, bf16, batch {BATCH}, incl. batch generation "
         f"[{card_line()}]")
-    device_ms = profile_steps(state, step, data_gen, epoch_seed, dev, med)
-    return model, counts, device_ms
+    device_ms, busy_ms = profile_steps(state, step, data_gen, epoch_seed, dev, med)
+    window = {"samples_per_s": BATCH * TRAIN_STEPS / sum(step_ms) * 1e3, "median_ms": med, "busy_ms": busy_ms,
+              "peak_gib": peak_gib}
+    return model, counts, device_ms, window
 
 
 # kernel-name fragments → layer, for the profile's breakdown (first match wins)
@@ -523,12 +551,12 @@ LAYERS = (
 )
 
 
-def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_steps: int = 3, batch: int = BATCH) -> dict:
+def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_steps: int = 3, batch: int = BATCH) -> tuple:
     """Device time by kernel and by layer over a few more fused steps
     (torch.profiler), and the device's busy share of ``step_ms``, the
     median step time measured without the profiler (whose own host cost
-    lengthens the profiled window). Returns each of our kernels' device ms
-    per step (one call per step)."""
+    lengthens the profiled window). Returns (each of our kernels' device ms
+    per step (one call per step), the device's busy ms per step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -573,7 +601,7 @@ def profile_steps(state, step, data_gen, epoch_seed, dev, step_ms: float, n_step
     return {
         key: sum(e.self_device_time_total for e in kernels if any(f in e.key for f in info[4])) / n_steps / 1e3
         for key, info in KERNEL_INFO.items()
-    }
+    }, busy_ms
 
 
 # ============================================================= reconstruct
@@ -1308,10 +1336,11 @@ def add_counts(total: dict, counts: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
-def timed_step(label: str, state, step, batch: int, dev, card: str, y=None, n: int = 12) -> None:
+def timed_step(label: str, state, step, batch: int, dev, card: str, y=None, n: int = 12) -> float:
     """A train step alone on fresh on-device rolls: the median of the last
     ``n`` − 2 of ``n`` steps, each closed by reading the loss, and its
-    device time and kernels (profile of 3 more)."""
+    device time and kernels (profile of 3 more). Returns the device ms per
+    step."""
     data_gen = torch.Generator(device=dev).manual_seed(15)
     cur = [state]
 
@@ -1330,6 +1359,7 @@ def timed_step(label: str, state, step, batch: int, dev, card: str, y=None, n: i
     dev_ms, kernels = device_ms_per_call(one, dev, n=3)
     log(f"  {label} step alone at batch {batch}: median {med:.3f} ms over {n - 2} ({batch / med * 1e3:.1f} samples/s); "
         f"device busy {dev_ms:.3f} ms/step ({dev_ms / med:.1%}, {kernels:.0f} kernels and copies) [{card}]")
+    return dev_ms
 
 
 def fused_run(argv: list, epochs: int, label: str, card: str) -> tuple:
@@ -1767,6 +1797,332 @@ def variants_phase(dev, root: Path, card: str) -> tuple:
         f"{time.perf_counter() - t_phase:.1f} s")
     return accum, total, errs
 
+# ========================================================== model variants
+
+
+SUB4_STEPS, REMAT_STEPS = 30, 10  # the flagship windows under --norm batch-sub4 and --remat
+NONE_STEPS = 10  # the --norm none windows (with and without --remat): the yardsticks of BatchNorm's share
+VANILLA_WIDTHS = ("32", "64", "128", "256")  # VanillaVAE's reference widths
+VANILLA_RUNS = {  # the train CLI's flags of each VanillaVAE variant run (128 px, batch 100, one epoch)
+    "BatchNorm": [],  # the plain model: the yardstick of GroupNorm and no norm
+    "BatchNorm, fused": ["--fused"],  # the yardstick of the fused s2d/d2s run
+    "s2d stem + d2s head, fused": ["--stem", "s2d", "--head", "d2s", "--fused"],
+    "GroupNorm": ["--norm", "group"],
+    "no norm": ["--norm", "none"],
+}
+VANILLA_YARDSTICKS = {"s2d stem + d2s head, fused": "BatchNorm, fused", "GroupNorm": "BatchNorm", "no norm": "BatchNorm"}
+
+
+def flagship_variant_window(dev, card: str, label: str, steps: int, **variant) -> dict:
+    """The flagship fused step (train_phase's configuration) with a model
+    variant: one fused step against the unfused step from the same weights
+    and batch given the plain draw (1e-3 relative), then a window of
+    ``steps`` fused steps (K1–K3 once each per step, peak memory), then a
+    profile of three more. Returns the window's numbers."""
+    model = build_model("FoldedVAE", dtype=torch.bfloat16, fused_reparam=True, seed=0, device=dev, **FLAGSHIP,
+                        **variant)
+    data_gen = torch.Generator(device=dev).manual_seed(1)
+    x0, _ = make_pianoroll_batch(data_gen, BATCH, device=dev)
+    kl = kl_weight_schedule("constant", KL_WEIGHT)
+    ref = copy.deepcopy(model)
+    eps = ops.k3_eps_plain((BATCH, FLAGSHIP["latent_dim"]), derive_step_seed(0, 0), dev)
+    _, ref_lo, _ = make_train_step(kl, fused_loss=False)(
+        create_train_state(ref, build_optimizer(ref, param_group_label, **OPTIMIZER)), x0, 0, eps=eps)
+    ref_loss = ref_lo.loss.item()
+    del ref
+
+    state = create_train_state(model, build_optimizer(model, param_group_label, **OPTIMIZER))
+    step = make_train_step(kl, fused_loss=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, step_ms = [], []
+    x = x0
+    for i in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if i:
+            x, _ = make_pianoroll_batch(data_gen, BATCH, device=dev)
+        state, lo, _ = step(state, x, 0)
+        losses.append(lo.loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+    check(counts == {k: steps for k in ops.KERNEL_WRAPPERS}, f"{label}: launched {counts} in {steps} fused steps")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    check(rel <= 1e-3, f"{label}: fused first-step loss {losses[0]} vs unfused {ref_loss}")
+    med = statistics.median(step_ms)
+    throughput = BATCH * steps / sum(step_ms) * 1e3
+    log(f"  {label}: {throughput:.1f} samples/s over {steps} fused steps at batch {BATCH} (step median {med:.3f} ms, "
+        f"min {min(step_ms):.3f}); launches {counts}; first fused step loss {losses[0]:.7f} vs unfused "
+        f"{ref_loss:.7f}: rel {rel:.2e}; peak memory {peak_gib:.3f} GiB [{card}]")
+    _, busy = profile_steps(state, step, data_gen, 0, dev, med)
+    return {"samples_per_s": throughput, "median_ms": med, "busy_ms": busy, "peak_gib": peak_gib, "counts": counts}
+
+
+def remat_equivalence(dev, card: str) -> None:
+    """The flagship step with remat on and off from the same weights, batch
+    and draw (unfused, eps given): losses within 1e-5 relative, every
+    BatchNorm buffer identical after the step."""
+    kl = kl_weight_schedule("constant", KL_WEIGHT)
+    x, _ = make_pianoroll_batch(torch.Generator(device=dev).manual_seed(11), BATCH, device=dev)
+    eps = ops.k3_eps_plain((BATCH, FLAGSHIP["latent_dim"]), derive_step_seed(0, 0), dev)
+    out = {}
+    for remat in (False, True):
+        model = build_model("FoldedVAE", dtype=torch.bfloat16, fused_reparam=True, seed=0, device=dev, remat=remat,
+                            **FLAGSHIP)
+        _, lo, _ = make_train_step(kl, fused_loss=False)(
+            create_train_state(model, build_optimizer(model, param_group_label, **OPTIMIZER)), x, 0, eps=eps)
+        out[remat] = (lo.loss.item(), {k: v.clone() for k, v in model.state_dict().items() if "running" in k})
+    rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    same = [k for k in out[False][1] if torch.equal(out[False][1][k], out[True][1][k])]
+    log(f"  remat on vs off, same weights, batch and draw: loss {out[True][0]:.7f} vs {out[False][0]:.7f} (rel "
+        f"{rel:.2e}); {len(same)} of {len(out[False][1])} BatchNorm buffers identical [{card}]")
+    check(rel <= 1e-5 and len(same) == len(out[False][1]), "remat changes the step")
+
+
+def card_vs_cpu(model, label: str, card: str, batch: int = 4) -> None:
+    """A trained model on the card against the same weights on the CPU, f32,
+    eps injected: train-mode logits and the eval reconstruction within 1e-4."""
+    gpu = copy.deepcopy(model).float()
+    cpu = copy.deepcopy(gpu).cpu()
+    dev = next(gpu.parameters()).device
+    x, _ = make_pianoroll_batch(torch.Generator(device=dev).manual_seed(14), batch, device=dev)
+    eps = torch.randn((batch, gpu.latent_dim), generator=torch.Generator().manual_seed(13))
+    with torch.no_grad():
+        errs = [float((gpu(x, train=True, eps=eps.to(dev)).logits.cpu() - cpu(x.cpu(), train=True, eps=eps).logits)
+                      .abs().max()),
+                float((gpu.decode(gpu.encode(x, train=False).mu, train=False).cpu()
+                       - cpu.decode(cpu.encode(x.cpu(), train=False).mu, train=False)).abs().max())]
+    log(f"  {label} card vs CPU, f32 batch {batch}: train logits max |err| {errs[0]:.3e}, eval reconstruction "
+        f"{errs[1]:.3e} [{card}]")
+    check(max(errs) <= 1e-4, f"{label} on the card disagrees with the CPU")
+
+
+def vanilla_variant_runs(dev, models: Path, card: str) -> tuple:
+    """VanillaVAE at its reference widths, 128 px, through the train CLI,
+    one epoch of each VANILLA_RUNS entry: card against CPU, the step timed
+    and its device time set against the plain step's from this run.
+    Returns (the fused-ELBO launches of the runs, the fused runs' kernel
+    shapes)."""
+    total: dict = {}
+    shapes = {}
+    device_ms = {}
+    for label, flags in VANILLA_RUNS.items():
+        argv = ["--dataset", "midi-synthetic", "--transform-type", "pianoroll", "--image-size", "128", "--model",
+                "VanillaVAE", "--hidden-dims", *VANILLA_WIDTHS, "--batch-size", str(CLI_BATCH), "--lr", MLP_LR,
+                "--epochs", "1", "--seed", "0", "--models-dir", str(models), "--run-name", "vanilla",
+                "--run-id", "_".join(flags).replace("-", "") or "plain"] + flags
+        fused = "--fused" in flags
+        if fused:
+            r, counts = fused_run(argv, 1, f"VanillaVAE {label}, 1 epoch", card)
+            shapes[f"VanillaVAE {label} batch"] = run_shape(r, CLI_BATCH)
+        else:
+            r = unfused_run(argv, f"VanillaVAE {label}, 1 epoch", card)
+            counts = ops.launch_counts()
+        add_counts(total, counts)
+        check(math.isfinite(r["train"]["loss"]) and math.isfinite(r["final_test"]["cross-entropy"]),
+              f"VanillaVAE {label}: loss {r['train']['loss']}")
+        card_vs_cpu(r["state"].model, f"VanillaVAE {label}", card)
+        device_ms[label] = timed_step(f"VanillaVAE {label} (f32)", r["state"],
+                                      make_train_step(kl_weight_schedule("constant", KL_WEIGHT), fused_loss=fused),
+                                      CLI_BATCH, dev, card)
+    log("  VanillaVAE device ms per step against the plain step's, this run: " + "; ".join(
+        f"{label} {device_ms[label]:.3f} / {device_ms[base]:.3f} ({base}) = {device_ms[label] / device_ms[base]:.1%}"
+        for label, base in VANILLA_YARDSTICKS.items()) + f" [{card}]")
+    return total, shapes
+
+
+def torch_compat_check(dev, models: Path, card: str) -> None:
+    """A reference-layout state_dict (a torch_compat VanillaVAE at the
+    reference widths and 32 px, its running statistics moved, written out by
+    the port's exporter) loaded into a fresh model on the card: the forward
+    against the CPU's (1e-4), the state_dict back bitwise; then one epoch of
+    the train CLI with --torch-compat."""
+    from midi_vae_tpu_torch.interop.torch_reference import export_reference_state_dict, import_reference_state_dict
+
+    kw = dict(in_channels=1, latent_dim=10, input_dim=32, hidden_dims=tuple(int(w) for w in VANILLA_WIDTHS),
+              torch_compat=True)
+    src = build_model("VanillaVAE", seed=8, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(15)
+    with torch.no_grad():
+        for _ in range(3):
+            src(torch.rand((8, 32, 32, 1), generator=gen), train=True, eps=torch.zeros(8, 10))
+    sd = export_reference_state_dict(src, num_batches_tracked=3)
+    on_card, on_cpu = build_model("VanillaVAE", seed=9, device=dev, **kw), build_model("VanillaVAE", seed=9,
+                                                                                     device="cpu", **kw)
+    import_reference_state_dict(on_card, sd)
+    import_reference_state_dict(on_cpu, sd)
+    back = export_reference_state_dict(on_card, num_batches_tracked=3)
+    check(list(back) == list(sd) and all(torch.equal(back[k], sd[k]) for k in sd),
+          "the reference state_dict did not round-trip through the card bitwise")
+    x = torch.rand((8, 32, 32, 1), generator=gen)
+    eps = torch.randn((8, 10), generator=gen)
+    with torch.no_grad():
+        err = max(float((on_card(x.to(dev), train=t, eps=eps.to(dev)).output.cpu()
+                         - on_cpu(x, train=t, eps=eps).output).abs().max()) for t in (False, True))
+    log(f"  torch_compat: reference state_dict ({len(sd)} tensors) loaded on the card and written back bitwise; "
+        f"forward (eval and train) vs the CPU max |err| {err:.3e} [{card}]")
+    check(err <= 1e-4, "the torch_compat model on the card disagrees with the CPU")
+    r = unfused_run(["--dataset", "vae-lines-synthetic", "--transform-type", "noaug", "--image-size", "32",
+                     "--torch-compat", "--epochs", "1", "--seed", "0", "--models-dir", str(models),
+                     "--run-name", "torch_compat", "--run-id", "1"], "VanillaVAE --torch-compat, 1 epoch", card)
+    check(math.isfinite(r["train"]["loss"]) and r["state"].model.torch_compat, f"torch_compat run: {r['train']}")
+
+
+def model_variants_phase(dev, root: Path, card: str, flagship: dict) -> tuple:
+    """The remaining model variants (module docstring, item 11). Returns (the
+    fused-ELBO launches of every run of the phase, the max kernel errors at
+    the new fused run's shape)."""
+    t_phase = time.perf_counter()
+    models = root / "build" / "model_variants"
+    shutil.rmtree(models, ignore_errors=True)
+    total: dict = {}
+
+    windows = {
+        "--norm batch-sub4": flagship_variant_window(dev, card, "flagship --norm batch-sub4", SUB4_STEPS,
+                                                     norm="batch-sub4"),
+        "--remat": flagship_variant_window(dev, card, "flagship --remat", REMAT_STEPS, remat=True),
+    }
+    none = {
+        False: flagship_variant_window(dev, card, "flagship --norm none", NONE_STEPS, norm="none"),
+        True: flagship_variant_window(dev, card, "flagship --norm none --remat", NONE_STEPS, norm="none", remat=True),
+    }
+    for w in [*windows.values(), *none.values()]:
+        add_counts(total, w["counts"])
+    log(f"  flagship windows at batch {BATCH}, this run: --norm batch {flagship['samples_per_s']:.1f} samples/s "
+        f"(train phase), " + ", ".join(f"{k} {w['samples_per_s']:.1f}" for k, w in windows.items())
+        + f", --norm none {none[False]['samples_per_s']:.1f}, --norm none --remat {none[True]['samples_per_s']:.1f} "
+        f"[{card}]")
+    rows = {"--norm batch": (flagship, none[False]), "--norm batch-sub4": (windows["--norm batch-sub4"], none[False]),
+            "--remat": (windows["--remat"], none[True])}
+    for label, (w, yardstick) in rows.items():
+        log(f"  {label}: device busy {w['busy_ms']:.3f} ms/step ({w['busy_ms'] / w['median_ms']:.1%} of the "
+            f"{w['median_ms']:.3f} ms median step); BatchNorm's share of device time "
+            f"{1 - yardstick['busy_ms'] / w['busy_ms']:.1%} (the same step with --norm none: "
+            f"{yardstick['busy_ms']:.3f} ms) [{card}]")
+    log(f"  peak memory of the window: --remat {windows['--remat']['peak_gib']:.3f} GiB vs without "
+        f"{flagship['peak_gib']:.3f} GiB (train phase) and {windows['--norm batch-sub4']['peak_gib']:.3f} GiB "
+        f"(batch-sub4); --norm none {none[False]['peak_gib']:.3f} GiB, with --remat {none[True]['peak_gib']:.3f} GiB "
+        f"[{card}]")
+    remat_equivalence(dev, card)
+
+    log("  VanillaVAE variants through the train CLI (reference widths, 128 px, batch 100):")
+    counts, shapes = vanilla_variant_runs(dev, models, card)
+    add_counts(total, counts)
+    log("  torch_compat (reference state_dict, 32 px):")
+    torch_compat_check(dev, models, card)
+    errs = kernels_at_run_shapes(dev, shapes)
+    log(f"  launches across the phase {total}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return total, errs
+
+
+# ================================================================ artifact
+
+
+def artifact_phase(dev, root: Path, card: str) -> dict:
+    """The exported serving artifact (module docstring, item 12). Returns the
+    fused-ELBO launches across it, which must all be 0."""
+    import numpy as np
+
+    from midi_vae_tpu_torch.cli.generate import _fetch_eval_batch, _load_model_and_state
+    from midi_vae_tpu_torch.cli.train_prior import load_prior
+    from midi_vae_tpu_torch.interop import aot_export
+    from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
+    from midi_vae_tpu_torch.serving.client import ServingClient
+    from midi_vae_tpu_torch.serving.server import serve
+
+    t_phase = time.perf_counter()
+    out = root / "build" / "artifact"
+    shutil.rmtree(out, ignore_errors=True)
+    ckpt = root / "build" / "cli_models" / "midi-synthetic" / "cli__fused" / "best_model.pt"
+    vq_dir = root / "build" / "vq_models" / "midi-synthetic" / "vq16__stage1"
+    ops.reset_launch_counts()
+
+    def stop(*servers):
+        for h in servers:
+            h.shutdown()
+            h.server_close()
+            h.service.close()
+
+    t0 = time.perf_counter()
+    manifest = aot_export.main(["--checkpoint", str(ckpt), "--out", str(out / "folded")])
+    export_s = time.perf_counter() - t0
+    log(f"  exported {ckpt.parent.name}/{ckpt.name} for {manifest['platforms']} in {export_s:.3f} s: " + ", ".join(
+        f"{name} {rec['bytes'][dev.type] / 1e6:.3f} MB (export {rec['export_s'][dev.type]:.3f} s)"
+        for name, rec in manifest["programs"].items()) + f" [{card}]")
+    t0 = time.perf_counter()
+    art = serve(artifact=str(out / "folded"), port=0)
+    load_s = time.perf_counter() - t0
+    ck = serve(str(ckpt), port=0)
+    try:
+        urls = {k: f"http://127.0.0.1:{h.server_address[1]}" for k, h in (("artifact", art), ("checkpoint", ck))}
+        health = ServingClient(urls["artifact"]).healthz()
+        check(health["model"] == "FoldedVAE (AOT artifact)" and health["artifact"]["platforms"] == [dev.type],
+              f"/healthz: {health}")
+        model, cfg, size, _, dataset = _load_model_and_state(str(ckpt), device="cpu")
+        x, _, _ = _fetch_eval_batch(dataset, None, size, 16, cfg, "cpu")
+        x = x.numpy()
+        got = {}
+        for where, url in urls.items():
+            c = ServingClient(url)
+            got[where] = {"reconstruct": c.reconstruct(x[:5]), "encode": np.concatenate(c.encode(x[:5]), axis=1),
+                          "sample": c.sample(16, 3), "interpolate lerp": c.interpolate(x[0], x[1], steps=8),
+                          "interpolate slerp": c.interpolate(x[0], x[1], steps=8, slerp=True)}
+        errs = {k: float(np.abs(got["artifact"][k] - v).max()) for k, v in got["checkpoint"].items()}
+        log(f"  serve --artifact on the card (loaded and listening in {load_s:.3f} s) vs the checkpoint server, max "
+            "|err|: " + "; ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f"; /healthz {health['model']} [{card}]")
+        check(max(errs.values()) <= 1e-5, f"the artifact server disagrees with the checkpoint server: {errs}")
+        lat = {}
+        for where, url in urls.items():
+            c = ServingClient(url)
+            timed(lambda: c.reconstruct(x[:1]), 10)
+            lat[where] = timed(lambda: c.reconstruct(x[:1]), SEQUENTIAL_REQUESTS)
+        log("  /reconstruct, 1 roll, npy, sequential (" + str(SEQUENTIAL_REQUESTS) + " after 10 warm-up): " + "; ".join(
+            f"{k} p50 {quantile_ms(v, 50):.3f} ms, p99 {quantile_ms(v, 99):.3f} ms" for k, v in lat.items())
+            + f" [{card}]")
+    finally:
+        stop(art, ck)
+
+    prior_path = vq_dir / "prior_latest.pt"
+    t0 = time.perf_counter()
+    manifest = aot_export.main(["--checkpoint", str(vq_dir / "best_model.pt"), "--out", str(out / "vq"), "--prior",
+                                str(prior_path)])
+    log(f"  exported the VQ run with its {manifest['prior']['arch']} prior in {time.perf_counter() - t0:.3f} s: "
+        + ", ".join(f"{name} {rec['bytes'][dev.type] / 1e6:.3f} MB" for name, rec in manifest["programs"].items())
+        + f" [{card}]")
+    art = serve(artifact=str(out / "vq"), port=0)
+    ck = serve(str(vq_dir / "best_model.pt"), port=0, prior=str(prior_path))
+    try:
+        n, seed, temperature = 4, 3, 0.9
+        prior, _ = load_prior(str(prior_path), device=dev)
+        grid = manifest["prior"]["grid"]
+        with torch.inference_mode():
+            want_codes = sample_codes_autoregressive(prior, seed, n, grid, temperature=temperature)
+        codes = art.service._bundle.sample_codes(seed, temperature, np.zeros(n, np.int32))
+        same = int((codes.int() == want_codes).sum())
+        a = ServingClient(f"http://127.0.0.1:{art.server_address[1]}")
+        b = ServingClient(f"http://127.0.0.1:{ck.server_address[1]}")
+        t0 = time.perf_counter()
+        got = a.sample(n, seed, temperature=temperature)
+        art_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = b.sample(n, seed, temperature=temperature)
+        ck_s = time.perf_counter() - t0
+        err = float(np.abs(got - want).max())
+        log(f"  VQ artifact /sample n={n} (temperature {temperature}): codes equal to the port's sampler on "
+            f"{same} of {want_codes.numel()} positions; images vs the checkpoint server with --prior max |err| "
+            f"{err:.3e}; {art_s:.3f} s vs {ck_s:.3f} s [{card}]")
+        check(same == want_codes.numel() and err <= 1e-5, "the VQ artifact's sampler disagrees")
+    finally:
+        stop(art, ck)
+
+    counts = ops.launch_counts()
+    check(counts == {k: 0 for k in ops.KERNEL_WRAPPERS}, f"the artifact path launched a fused-ELBO kernel: {counts}")
+    log(f"  launches across the artifact phase: {counts}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
 
 # ==================================================================== main
 
@@ -1797,7 +2153,7 @@ def main() -> int:
     for part, more in zip((errs, times, sizes), k3_phase(dev)):
         part.update(more)
     log(f"train ({TRAIN_STEPS} fused steps, flagship FoldedVAE):")
-    model, counts, device_ms = train_phase(dev)
+    model, counts, device_ms, flagship_window = train_phase(dev)
     log("reconstruct:")
     reconstruct_phase(model, dev)
     log("train CLI (configs/folded.yaml):")
@@ -1808,6 +2164,10 @@ def main() -> int:
     vq_counts = vq_phase(dev, root, card)
     log("training variants (grad_accum, β-TC, conditional, MLPVAE, optimizers):")
     accum_counts, variant_counts, variant_errs = variants_phase(dev, root, card)
+    log("model variants (batch-sub4, remat, s2d/d2s, group and no norm, torch_compat):")
+    model_counts, model_errs = model_variants_phase(dev, root, card, flagship_window)
+    log("the exported serving artifact (aot_export, serve --artifact):")
+    artifact_counts = artifact_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -1824,7 +2184,9 @@ def main() -> int:
                 "vq_launches": vq_counts[key],
                 "accum_launches": accum_counts[key],
                 "variant_launches": variant_counts[key],
-                "max_abs_err": max(errs[key], variant_errs[key]),
+                "model_variant_launches": model_counts[key],
+                "artifact_launches": artifact_counts[key],
+                "max_abs_err": max(errs[key], variant_errs[key], model_errs[key]),
                 "ms": ms,
                 "device_ms": device_ms[key],
                 "plain_ms": plain_ms,

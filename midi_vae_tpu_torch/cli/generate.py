@@ -77,23 +77,6 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse(gaps) -> None:
-    """Raise ``NotImplementedError`` for the first (missing, what, item) gap
-    that applies, naming its ROADMAP item (Queue 1)."""
-    for missing, what, item in gaps:
-        if missing:
-            raise NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 item {item})")
-
-
-def _check_checkpoint_ported(cfg: dict) -> None:
-    """Refuse checkpoints of models the port does not have yet."""
-    _refuse([
-        (bool(cfg.get("torch_compat")), "a torch_compat checkpoint", 17),
-        (cfg.get("stem", "conv") != "conv" or cfg.get("head", "deconv") != "deconv", "stem s2d / head d2s", 17),
-        ((cfg.get("norm") or "batch") != "batch", f"norm {cfg.get('norm')}", 17),
-    ])
-
-
 def _load_model_and_state(checkpoint_path: str, use_ema: bool = True, payload=None, device: DeviceLike = "cuda"):
     """Build the model of a checkpoint on ``device`` and load its weights
     (the EMA averages unless ``use_ema=False``); returns ``(model, config,
@@ -108,7 +91,6 @@ def _load_model_and_state(checkpoint_path: str, use_ema: bool = True, payload=No
         payload = load_checkpoint(checkpoint_path)
     cfg = payload.get("config", {})
     enc = payload.get("encoder_config", {})
-    _check_checkpoint_ported(cfg)
     image_size = int(enc.get("input_size") or cfg.get("image_size") or 32)
     dataset = cfg.get("dataset_name", "mnist")
     _, _, channels = image_dataset_sizes(dataset)
@@ -118,7 +100,12 @@ def _load_model_and_state(checkpoint_path: str, use_ema: bool = True, payload=No
         latent_dim=int(cfg.get("n_features", 10)),
         input_dim=image_size,
         hidden_dims=tuple(cfg.get("hidden_dims") or (32, 64, 128, 256)),
+        # the architecture variants must match the trained weights
+        stem=cfg.get("stem", "conv"),
+        head=cfg.get("head", "deconv"),
         fold=int(cfg.get("fold", 4)),
+        torch_compat=bool(cfg.get("torch_compat", False)),
+        norm=cfg.get("norm") or "batch",
         codebook_size=int(cfg.get("codebook_size") or 512),
         vq_decay=float(cfg.get("vq_decay") or 0.99),
         num_classes=int(cfg.get("num_classes") or 0) if cfg.get("conditional") else 0,

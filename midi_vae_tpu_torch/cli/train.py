@@ -87,11 +87,11 @@ def get_parser() -> argparse.ArgumentParser:
                             "cost'). Default: %(default)s")
     group.add_argument("--remat", action="store_true",
                        help="Rematerialize conv-stack activations in the backward pass "
-                            "(not ported yet: raises).")
+                            "(torch.utils.checkpoint around the encoder, decoder and head).")
     group.add_argument("--torch-compat", action="store_true",
                        help="Use the reference's exact padding arithmetic and flatten order —"
                             " forward bit-compatible with the torch reference, so weights"
-                            " import from it and export back to it (not ported yet: raises).")
+                            " import from it and export back to it (interop/torch_reference.py).")
     group.add_argument("--freeze-encoder", action="store_true")
     group.add_argument("--pretrained", type=str, default=None,
                        help="Warm-start model parameters from an existing checkpoint; optimizer "
@@ -220,14 +220,14 @@ def get_parser() -> argparse.ArgumentParser:
                        help="Enable autograd anomaly detection (NaN checks in the backward).")
     group.add_argument("--verbose", action="store_true",
                        help="Trace tensor shapes/ranges at each model forward stage "
-                            "(not ported yet: raises).")
+                            "(printed, one device sync per stage).")
     group.add_argument("--profile-dir", type=str, default=None,
                        help="Write a torch.profiler chrome trace (trace.json) of the first "
                             "--profile-epochs epochs to this directory.")
     group.add_argument("--profile-epochs", type=int, default=1,
                        help="Number of leading epochs to trace. Default: %(default)s")
     group.add_argument("--compilation-cache", type=str, default=None, metavar="DIR",
-                       help="Persistent compilation-cache directory (not ported yet: raises).")
+                       help="Persistent compilation-cache directory (not ported yet, ROADMAP item 17e: raises).")
 
     # Hardware configuration args (train.py:971-1007) --------------------------
     group = parser.add_argument_group("Hardware configuration")

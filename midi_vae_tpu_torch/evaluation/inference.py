@@ -87,6 +87,17 @@ def _slerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return (torch.sin((1.0 - t) * omega) / so) * a + (torch.sin(t * omega) / so) * b
 
 
+def latent_path(mu_a: torch.Tensor, mu_b: torch.Tensor, steps: int, mode: str) -> torch.Tensor:
+    """[steps, B, D] latents from ``mu_a`` to ``mu_b`` ([B, D] each), ``lerp``
+    or ``slerp``, endpoints included."""
+    ts = torch.linspace(0.0, 1.0, steps, device=mu_a.device).reshape(steps, 1, 1)
+    if mode == "lerp":
+        return (1.0 - ts) * mu_a[None] + ts * mu_b[None]
+    if mode == "slerp":
+        return _slerp(mu_a, mu_b, ts)
+    raise ValueError(f"Unknown interpolation mode: {mode}")
+
+
 @torch.inference_mode()
 def interpolate(
     model, x_a: torch.Tensor, x_b: torch.Tensor, *, steps: int = 8, mode: str = "lerp", y: Optional[torch.Tensor] = None
@@ -97,14 +108,7 @@ def interpolate(
     y = None if y is None else y.to(x_a.device)
     mu_a = model.encode(x_a, train=False, **label_kwarg(model, y)).mu
     mu_b = model.encode(x_b, train=False, **label_kwarg(model, y)).mu
-    ts = torch.linspace(0.0, 1.0, steps, device=mu_a.device).reshape(steps, 1, 1)
-    if mode == "lerp":
-        zs = (1.0 - ts) * mu_a[None] + ts * mu_b[None]
-    elif mode == "slerp":
-        zs = _slerp(mu_a, mu_b, ts)
-    else:
-        raise ValueError(f"Unknown interpolation mode: {mode}")
-    return _decode_steps(model, zs, y)
+    return _decode_steps(model, latent_path(mu_a, mu_b, steps, mode), y)
 
 
 @torch.inference_mode()

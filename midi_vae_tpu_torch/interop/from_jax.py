@@ -11,10 +11,13 @@ torch (module.leaf)            flax (collection/leaf)      layout
 =============================  ==========================  ===========================
 Conv.weight (also MaskedConv)  params/kernel               HWIO → OIHW
 ConvTranspose.weight           params/kernel               flip H, W; HWIO → IOHW
+TorchConvTranspose.weight      params/kernel               HWIO → IOHW (stored unflipped)
 Dense.weight                   params/kernel               [in..., out...] → [out, in]
-BatchNorm.weight               params/scale                as is
+BatchNorm.weight (also         params/scale                as is
+  SubsampledBatchNorm)
 BatchNorm.running_mean         batch_stats/mean            as is
 BatchNorm.running_var          batch_stats/var             as is
+GroupNorm.weight               params/scale                as is
 LayerNorm.weight               params/scale                as is
 VectorQuantizerEMA.<buffer>    batch_stats/<buffer>        as is
 TransformerCodePrior.bos,      params/bos, pos_embed       as is
@@ -45,7 +48,7 @@ import torch
 import torch.nn as nn
 
 from midi_vae_tpu_torch.models.prior import LayerNorm, TransformerCodePrior
-from midi_vae_tpu_torch.models.vae import BatchNorm, Conv, ConvTranspose, Dense
+from midi_vae_tpu_torch.models.vae import BatchNorm, Conv, ConvTranspose, Dense, GroupNorm, TorchConvTranspose
 from midi_vae_tpu_torch.models.vq import VectorQuantizerEMA
 
 _BN_LEAVES = {
@@ -72,9 +75,9 @@ def flax_name_map(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
         module, leaf, mod_path = _owner(model, name)
         if isinstance(module, BatchNorm):
             collection, flax_leaf = _BN_LEAVES[leaf]
-        elif isinstance(module, (Conv, ConvTranspose, Dense)):
+        elif isinstance(module, (Conv, ConvTranspose, TorchConvTranspose, Dense)):
             collection, flax_leaf = _LAYER_LEAVES[leaf]
-        elif isinstance(module, LayerNorm):
+        elif isinstance(module, (LayerNorm, GroupNorm)):
             collection, flax_leaf = _LN_LEAVES[leaf]
         elif isinstance(module, VectorQuantizerEMA):
             collection, flax_leaf = _QUANTIZER_LEAVES[leaf]
@@ -96,6 +99,8 @@ def _to_torch(module: nn.Module, leaf: str, array: np.ndarray) -> np.ndarray:
         return array.transpose(3, 2, 0, 1)
     if isinstance(module, ConvTranspose):
         return np.flip(array, (0, 1)).transpose(2, 3, 0, 1)
+    if isinstance(module, TorchConvTranspose):
+        return array.transpose(2, 3, 0, 1)
     return array
 
 
@@ -109,6 +114,8 @@ def to_flax_layout(model: nn.Module, name: str, tensor: torch.Tensor) -> np.ndar
         return array.transpose(2, 3, 1, 0)
     if isinstance(module, ConvTranspose):
         return np.flip(array, (2, 3)).transpose(2, 3, 0, 1)
+    if isinstance(module, TorchConvTranspose):
+        return array.transpose(2, 3, 0, 1)
     if isinstance(module, Dense):
         return array.T
     return array

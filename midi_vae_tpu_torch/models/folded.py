@@ -14,7 +14,9 @@ and fold f (a power of two ≤ 2^L):
 
 Both folds order channels (fi, fj, c), as the JAX package does; that is
 ``pixel_unshuffle``/``pixel_shuffle``'s order only for one channel, so
-they are written out here.
+they are written out (``models/vae.py``, shared with the s2d stem and the
+d2s head). ``norm`` and ``remat`` apply as in VanillaVAE; ``stem``,
+``head`` and ``torch_compat`` do not (``ValueError``, as in JAX).
 """
 
 from __future__ import annotations
@@ -25,13 +27,15 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from midi_vae_tpu_torch.models.vae import (
+from midi_vae_tpu_torch.models.vae import (  # noqa: F401  (the folds are this module's API too)
     BlockStack,
     Conv,
     ConvBlock,
     DeconvBlock,
     VanillaVAE,
+    _depth_to_space,
     _logit_bias_init,
+    _space_to_depth,
 )
 
 
@@ -40,22 +44,6 @@ def _log2_int(n: int) -> int:
     if 2**r != n:
         raise ValueError(f"fold must be a power of two, got {n}")
     return r
-
-
-def _space_to_depth(x: torch.Tensor, f: int) -> torch.Tensor:
-    """NHWC [B, H, W, C] → [B, H/f, W/f, f·f·C], channels ordered (fi, fj, c)."""
-    b, h, w, c = x.shape
-    if h % f or w % f:
-        raise ValueError(f"input {h}x{w} not divisible by fold={f}")
-    x = x.reshape(b, h // f, f, w // f, f, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // f, w // f, f * f * c)
-
-
-def _depth_to_space(x: torch.Tensor, f: int, out_ch: int) -> torch.Tensor:
-    """NHWC [B, H, W, f·f·C] → [B, H·f, W·f, C], the inverse of :func:`_space_to_depth`."""
-    b, h, w, _ = x.shape
-    x = x.reshape(b, h, w, f, f, out_ch)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * f, w * f, out_ch)
 
 
 class FoldedEncoder(BlockStack):
@@ -118,6 +106,8 @@ class FoldedVAE(VanillaVAE):
     same interface, latent heads and crop rule; different conv stacks."""
 
     def __init__(self, *args, fold: int = 4, **kwargs):
+        if kwargs.get("torch_compat") or kwargs.get("stem", "conv") != "conv" or kwargs.get("head", "deconv") != "deconv":
+            raise ValueError(f"{type(self).__name__} has its own layout; stem/head/torch_compat do not apply")
         if fold < 2:
             raise ValueError(f"FoldedVAE needs fold >= 2, got {fold}")
         self.fold = fold

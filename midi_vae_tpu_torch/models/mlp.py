@@ -8,7 +8,9 @@ carry flax's names (``encoder_0``, ``encoder_1``, …, ``fc_mu``,
 ``interop/from_jax.py`` maps a flax tree onto the model. The interface is
 VanillaVAE's: the same reparameterization (K3 with ``fused_reparam``),
 labels for ``num_classes`` > 0 joined at the dense bottleneck, NHWC
-logits out.
+logits out. ``verbose`` prints the JAX package's two encoder stages
+(``trace_range``); ``remat`` is accepted and inert, as in JAX (the dense
+stack stores little).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
-from midi_vae_tpu_torch.models.vae import _LEAKY_SLOPE, Dense, VanillaVAE, _logit_bias_init, class_onehot
+from midi_vae_tpu_torch.models.vae import _LEAKY_SLOPE, Dense, VanillaVAE, _logit_bias_init, class_onehot, trace_range
 
 
 class MLPVAE(nn.Module):
@@ -38,9 +40,12 @@ class MLPVAE(nn.Module):
         fused_reparam: bool = False,
         output_logit_bias: Optional[float] = None,
         num_classes: int = 0,
+        verbose: bool = False,
+        remat: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.verbose, self.remat = bool(verbose), bool(remat)
         self.in_channels = in_channels
         self.latent_dim = latent_dim
         self.input_dim = input_dim
@@ -75,7 +80,9 @@ class MLPVAE(nn.Module):
 
     def encode(self, x: torch.Tensor, train: bool = False, y: Optional[torch.Tensor] = None) -> EncoderOutput:
         """NHWC images → (mu, log_var); ``pre_latents`` is the last hidden layer."""
+        trace_range(self.verbose, "encode/input", x)
         h = self._stack("encoder", x.reshape(x.shape[0], -1))
+        trace_range(self.verbose, "encode/hidden", h)
         hc = torch.cat([h, class_onehot(self, y, "encode")], dim=-1) if self.num_classes > 0 else h
         return EncoderOutput(mu=self.fc_mu(hc), log_var=self.fc_var(hc), pre_latents=h)
 

@@ -24,7 +24,8 @@ masked scores with the dtype's most negative finite value. The code and
 class embeddings are gathers, which equal the JAX package's one-hot
 contractions exactly. Compute runs in ``dtype`` with f32 parameters.
 
-:func:`sample_codes_autoregressive` is the ancestral sampler: one full
+:func:`sample_codes_autoregressive` (defined in ``core/sampling.py``,
+which the artifact loader shares) is the ancestral sampler: one full
 forward per raster position, as the JAX package's ``lax.scan``; draws
 come from a ``torch.Generator`` keyed by the seed.
 """
@@ -34,12 +35,11 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from midi_vae_tpu_torch.core.rng import categorical
+from midi_vae_tpu_torch.core.sampling import nucleus_mask, sample_codes_autoregressive  # noqa: F401  (this module's API too)
 from midi_vae_tpu_torch.models.vae import Conv, Dense
 
 _LN_EPS = 1e-6  # flax LayerNorm's epsilon
@@ -221,73 +221,3 @@ def picked_log_probs(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def prior_nll(prior: nn.Module, idx: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The prior's training loss: mean NLL in nats per position, f32."""
     return -torch.mean(picked_log_probs(prior(idx, y), idx))
-
-
-def nucleus_mask(logits: torch.Tensor, top_p: float) -> torch.Tensor:
-    """Mask ``[N, K]`` logits to their nucleus (the smallest set of codes
-    with cumulative probability ≥ ``top_p``); the rest become −inf. The
-    descending order is a stable sort, as ``jnp.argsort``: equal
-    probabilities keep index order."""
-    probs = torch.softmax(logits, dim=-1)
-    order = torch.sort(-probs, dim=-1, stable=True).indices
-    sorted_probs = torch.gather(probs, -1, order)
-    # keep a sorted position while the mass before it is < top_p: always the top-1 code
-    keep_sorted = torch.cumsum(sorted_probs, dim=-1) - sorted_probs < top_p
-    keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
-    return torch.where(keep, logits, torch.full_like(logits, -math.inf))
-
-
-@torch.inference_mode()
-def sample_codes_autoregressive(
-    prior: nn.Module,
-    seed: int,
-    num_samples: int,
-    grid: int,
-    temperature: float = 1.0,
-    y: Optional[torch.Tensor] = None,
-    top_p: Optional[float] = None,
-    known: Optional[torch.Tensor] = None,
-    known_mask=None,
-) -> torch.Tensor:
-    """Ancestral sampling: [num_samples, grid, grid] int32 code grids on the
-    prior's device, one full forward per raster position.
-
-    ``seed`` keys a ``torch.Generator`` on the prior's device. ``top_p`` restricts each draw to the nucleus
-    (:func:`nucleus_mask`; ≥ 1 is a no-op). ``known`` [num_samples, grid,
-    grid] with ``known_mask`` [grid, grid] forces the masked positions to
-    their known codes (exact p(rest | prefix) for a raster prefix, forced
-    decoding otherwise). Every position consumes its draw whether it is
-    forced or not, so free positions before the first forced one equal an
-    unconstrained run with the same seed; a forced position skips the
-    forward it does not need.
-    """
-    if top_p is not None and not (0.0 < top_p <= 1.0):
-        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-    if (known is None) != (known_mask is None):
-        raise ValueError("known and known_mask must be provided together")
-    dev = next(prior.parameters()).device
-    forced = np.zeros((grid, grid), bool)
-    if known is not None:
-        known = torch.as_tensor(known, device=dev).long()
-        forced = np.asarray(torch.as_tensor(known_mask).cpu(), bool)
-        if tuple(known.shape) != (num_samples, grid, grid):
-            raise ValueError(f"known must be [num_samples={num_samples}, {grid}, {grid}], got {tuple(known.shape)}")
-        if forced.shape != (grid, grid):
-            raise ValueError(f"known_mask must be [{grid}, {grid}], got {forced.shape}")
-    if y is not None:
-        y = torch.as_tensor(y, device=dev).long()
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    t_inv = float(np.float32(1.0) / np.maximum(np.float32(temperature), np.float32(1e-6)))
-    use_nucleus = top_p is not None and top_p < 1.0
-    idx = torch.zeros((num_samples, grid, grid), dtype=torch.long, device=dev)
-    for t in range(grid * grid):
-        i, j = divmod(t, grid)
-        if forced[i, j]:
-            torch.rand((num_samples, prior.num_codes), generator=gen, device=dev)  # the draw this position consumes
-            idx[:, i, j] = known[:, i, j]
-            continue
-        step_logits = prior(idx, y)[:, i, j, :].float() * t_inv
-        if use_nucleus:
-            step_logits = nucleus_mask(step_logits, float(top_p))
-        idx[:, i, j] = categorical(step_logits, gen)
-    return idx.int()

@@ -1,8 +1,10 @@
 """Model registry (counterpart of ``midi_vae_tpu/models/registry.py``).
 
-Ported so far: ``VanillaVAE`` (reference layout), ``FoldedVAE``,
-``MLPVAE`` and the VQ-VAEs ``VQVAE`` and ``FoldedVQVAE``. The Gaussian
-models take ``num_classes`` > 0 to become conditional.
+Every architecture of the JAX registry: ``VanillaVAE``, ``FoldedVAE``,
+``MLPVAE`` and the VQ-VAEs ``VQVAE`` and ``FoldedVQVAE``, with every
+variant the JAX registry builds (stem, head, norm, torch_compat, remat,
+verbose); the combinations it refuses raise its ``ValueError`` messages.
+The Gaussian models take ``num_classes`` > 0 to become conditional.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ def build_model(
     codebook_size: int = 512,
     vq_decay: float = 0.99,
     torch_compat: bool = False,
+    remat: bool = False,
+    verbose: bool = False,
     seed: int = 0,
     device: DeviceLike = "cuda",
 ):
@@ -60,8 +64,8 @@ def build_model(
             raise ValueError("VQVAE has no reparameterization; drop --fused")
         if num_classes:
             raise ValueError("VQVAE has no conditional variant; use --model VanillaVAE for --conditional")
-    elif torch_compat:
-        raise NotImplementedError("torch_compat is not ported to the PyTorch package yet (ROADMAP Queue 1 item 17)")
+    if torch_compat and key == "mlpvae":
+        raise ValueError("torch_compat is the reference-parity mode of VanillaVAE; MLPVAE has no reference twin")
     if num_classes < 0:
         raise ValueError(
             "conditional training needs a labeled dataset with a known class "
@@ -75,6 +79,8 @@ def build_model(
         fused_reparam=fused_reparam,
         output_logit_bias=output_logit_bias,
         num_classes=int(num_classes),
+        remat=remat,
+        verbose=verbose,
         generator=torch.Generator().manual_seed(seed),
     )
     if key == "mlpvae":
@@ -84,6 +90,8 @@ def build_model(
             raise ValueError("--stem/--head apply to conv architectures; MLPVAE has neither")
     else:
         kwargs.update(stem=stem, head=head, norm=norm)
+    if torch_compat:
+        kwargs["torch_compat"] = True
     if hidden_dims is not None:
         kwargs["hidden_dims"] = tuple(hidden_dims)
     if dtype is not None:

@@ -34,20 +34,83 @@ A conditional model (``num_classes`` > 0) joins the one-hot label to the
 flattened features before ``fc_mu``/``fc_var`` and to z before
 ``decoder_input``; those Dense layers are that much wider, as in flax.
 Labels go to a model only through :func:`label_kwarg`.
+
+Variants, as the JAX package's (``vae.py:107-480``):
+
+- ``norm``: ``batch`` (above), ``batch-subN`` (:class:`SubsampledBatchNorm`:
+  training statistics from ``x[::N]``, variance not clamped, applied as one
+  FMA in the compute dtype), ``group`` (:class:`GroupNorm`, flax's: f32
+  statistics per sample and group of contiguous channels) or ``none``;
+- ``stem="s2d"`` (:class:`S2DStem`: a 2×2 space-to-depth fold, then a
+  stride-1 conv) and ``head="d2s"`` (:class:`D2SHead`: the head at half
+  resolution, then a depth-to-space unfold);
+- ``torch_compat``: the reference's own padding, symmetric (1, 1) on the
+  stride-2 convs and torch's ``ConvTranspose2d(k3, s2, p1, op1)``
+  (:class:`TorchConvTranspose`), so a reference ``state_dict``
+  (``interop/torch_reference.py``) reproduces the reference's activations;
+- ``remat``: the encoder, decoder and head run under
+  ``torch.utils.checkpoint`` (:func:`remat_call`), their activations
+  recomputed in the backward; a recompute updates no running statistics;
+- ``verbose``: each stage's shape (NHWC, as JAX prints it), min and max
+  printed as the forward passes it (:func:`trace_range`); off, no work.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager, nullcontext
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
 from midi_vae_tpu_torch.ops.fused_elbo import fused_reparam_kl
 
 _LEAKY_SLOPE = 0.01
+
+
+def trace_range(verbose: bool, name: str, x: torch.Tensor, nchw: bool = False) -> None:
+    """Print ``name shape=(...) min=... max=...`` of a forward stage when
+    ``verbose`` (JAX ``trace_range``, ``vae.py:48-65``); ``nchw`` marks an
+    NCHW feature map, whose shape is printed in NHWC order as JAX sees it.
+    Reading min and max syncs with the device, as ``jax.debug.print`` does.
+    Nothing happens when ``verbose`` is off."""
+    if not verbose:
+        return
+    shape = (x.shape[0], *x.shape[2:], x.shape[1]) if nchw else tuple(x.shape)
+    x = x.detach()
+    print(f"{name} shape={tuple(shape)} min={float(x.min()):.6g} max={float(x.max()):.6g}", flush=True)
+
+
+_RECOMPUTE = threading.local()
+
+
+@contextmanager
+def _recomputing():
+    prev = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = prev
+
+
+def in_recompute() -> bool:
+    """True while :func:`remat_call` reruns a forward for the backward:
+    running statistics must not be updated a second time then."""
+    return getattr(_RECOMPUTE, "active", False)
+
+
+def remat_call(module: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """``module(x, train)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are dropped and recomputed in the backward, as flax
+    ``nn.remat`` does. The recompute runs under :func:`in_recompute`, so
+    BatchNorm's running averages move once per forward, as in JAX."""
+    return checkpoint(module, x, train, use_reentrant=False,
+                      context_fn=lambda: (nullcontext(), _recomputing()))
 
 
 def label_kwarg(model, y) -> dict:
@@ -95,8 +158,28 @@ def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _space_to_depth(x: torch.Tensor, f: int) -> torch.Tensor:
+    """NHWC [B, H, W, C] → [B, H/f, W/f, f·f·C], channels ordered (fi, fj, c)
+    as the JAX package folds (``pixel_unshuffle`` orders (c, fi, fj))."""
+    b, h, w, c = x.shape
+    if h % f or w % f:
+        raise ValueError(f"input {h}x{w} not divisible by fold={f}")
+    x = x.reshape(b, h // f, f, w // f, f, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // f, w // f, f * f * c)
+
+
+def _depth_to_space(x: torch.Tensor, f: int, out_ch: int) -> torch.Tensor:
+    """NHWC [B, H, W, f·f·C] → [B, H·f, W·f, C], the inverse of :func:`_space_to_depth`."""
+    b, h, w, _ = x.shape
+    x = x.reshape(b, h, w, f, f, out_ch)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * f, w * f, out_ch)
+
+
 class Conv(nn.Module):
-    """flax ``nn.Conv(features, (k, k), strides, "SAME")`` on NCHW (k = 3 unless given)."""
+    """flax ``nn.Conv(features, (k, k), strides, "SAME")`` on NCHW (k = 3
+    unless given); ``torch_pad`` pads (k//2, k//2) on every side instead, as
+    the reference's ``Conv2d(k3, padding=1)`` and JAX's torch_compat
+    ``ConvBlock`` do."""
 
     def __init__(
         self,
@@ -108,10 +191,12 @@ class Conv(nn.Module):
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator,
         bias_value: float = 0.0,
+        torch_pad: bool = False,
     ):
         super().__init__()
         self.kernel_size = kernel_size
         self.stride = stride
+        self.torch_pad = torch_pad
         self.dtype = dtype
         self.weight = nn.Parameter(_xavier(torch.empty(features, in_features, kernel_size, kernel_size), generator))
         self.bias = nn.Parameter(torch.full((features,), bias_value))
@@ -121,8 +206,11 @@ class Conv(nn.Module):
         return self.weight
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hlo, hhi = _same_pads(x.shape[2], self.kernel_size, self.stride)
-        wlo, whi = _same_pads(x.shape[3], self.kernel_size, self.stride)
+        if self.torch_pad:
+            hlo = hhi = wlo = whi = self.kernel_size // 2
+        else:
+            hlo, hhi = _same_pads(x.shape[2], self.kernel_size, self.stride)
+            wlo, whi = _same_pads(x.shape[3], self.kernel_size, self.stride)
         x = x.to(self.dtype)
         if (hlo, wlo) == (hhi, whi):
             padding = (hlo, wlo)
@@ -151,6 +239,28 @@ class ConvTranspose(nn.Module):
         h, w = x.shape[2], x.shape[3]
         y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype), stride=2)
         return y[:, :, : 2 * h, : 2 * w]
+
+
+class TorchConvTranspose(nn.Module):
+    """torch ``ConvTranspose2d(k3, s2, padding=1, output_padding=1)`` on NCHW
+    (JAX ``TorchConvTranspose``, ``vae.py:214-241``): ``weight`` is torch's
+    own ``[in, out, 3, 3]``, which the flax model stores as its HWIO kernel
+    *unflipped* and flips at apply; the SAME :class:`ConvTranspose` stores it
+    flipped, so the weight bridge maps the two differently."""
+
+    def __init__(
+        self, in_features: int, features: int, *, dtype: torch.dtype = torch.float32, generator: torch.Generator
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(_xavier(torch.empty(in_features, features, 3, 3), generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype), stride=2, padding=1,
+            output_padding=1,
+        )
 
 
 class Dense(nn.Module):
@@ -192,24 +302,116 @@ class BatchNorm(nn.Module):
         if train:
             mean = x32.mean(dim=(0, 2, 3))
             var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
 
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Move the running averages toward a batch's statistics (flax
+        momentum), except in a remat recompute (:func:`in_recompute`)."""
+        if in_recompute():
+            return
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
-def _check_norm(norm: str) -> None:
-    if norm != "batch":
-        raise NotImplementedError(f"norm={norm!r} is not ported to the PyTorch package yet (only 'batch')")
+
+class SubsampledBatchNorm(BatchNorm):
+    """JAX ``SubsampledBatchNorm`` (``vae.py:115-169``), ``norm="batch-subN"``.
+
+    Training statistics come from every ``stride``-th sample of the batch
+    (``x[::stride]``, in f32), with the variance ``E[x²] − mean²`` *not*
+    clamped at 0, and move the running averages as BatchNorm's do. The
+    norm is applied to the whole batch as one FMA in the compute dtype
+    (``addcmul``: one read of x, one write): ``x·a + b`` with ``a =
+    scale·rsqrt(var + ε)`` and ``b = bias − mean·a`` folded in f32 and cast
+    (BatchNorm normalises in f32 instead). Eval mode uses the running
+    averages, as BatchNorm's."""
+
+    def __init__(self, features: int, *, stride: int, dtype: torch.dtype = torch.float32):
+        super().__init__(features, dtype=dtype)
+        self.stride = stride
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if train:
+            xs = x[:: self.stride].float()
+            mean = xs.mean(dim=(0, 2, 3))
+            var = (xs * xs).mean(dim=(0, 2, 3)) - mean * mean
+            self.update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = self.weight * torch.rsqrt(var + self.epsilon)
+        b = self.bias - mean * a
+        dt = self.dtype
+        return torch.addcmul(b.to(dt)[:, None, None], x.to(dt), a.to(dt)[:, None, None])
+
+
+def _gn_groups(channels: int, target: int = 32) -> int:
+    """Largest group count ≤ ``target`` that divides ``channels``."""
+    g = min(target, channels)
+    while channels % g:
+        g -= 1
+    return g
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=_gn_groups(C), epsilon=1e-5)`` over NCHW:
+    per sample, f32 statistics over each group of contiguous channels and
+    all pixels (``E[x²] − E[x]²``, clipped at 0), normalised in f32 with the
+    per-channel scale and bias, cast to ``dtype``. Contiguous channels form
+    the same groups in NCHW as in NHWC. No running statistics."""
+
+    def __init__(self, features: int, *, dtype: torch.dtype = torch.float32, epsilon: float = 1e-5):
+        super().__init__()
+        self.dtype = dtype
+        self.epsilon = epsilon
+        self.num_groups = _gn_groups(features)
+        self.weight = nn.Parameter(torch.ones(features))  # flax "scale"
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        b, c, h, w = x.shape
+        g = self.num_groups
+        xg = x.float().reshape(b, g, c // g, h, w)
+        mean = xg.mean(dim=(2, 3, 4))
+        var = ((xg * xg).mean(dim=(2, 3, 4)) - mean * mean).clamp_min(0.0)
+        mean = mean.repeat_interleave(c // g, dim=1)[:, :, None, None]
+        mul = (torch.rsqrt(var + self.epsilon).repeat_interleave(c // g, dim=1) * self.weight)[:, :, None, None]
+        y = (x.float() - mean) * mul + self.bias[:, None, None]
+        return y.to(self.dtype)
+
+
+def add_norm(block: nn.Module, norm: str, features: int, dtype: torch.dtype) -> Optional[str]:
+    """Register ``block``'s normalization sublayer under its flax name (JAX
+    ``_apply_norm``, ``vae.py:172-211``) and return that name; ``None`` for
+    ``norm="none"``, which adds no layer."""
+    if norm == "batch":
+        name, layer = "BatchNorm_0", BatchNorm(features, dtype=dtype)
+    elif norm.startswith("batch-sub"):
+        name, layer = "SubsampledBatchNorm_0", SubsampledBatchNorm(
+            features, stride=int(norm[len("batch-sub"):]), dtype=dtype)
+    elif norm == "group":
+        name, layer = "GroupNorm_0", GroupNorm(features, dtype=dtype)
+    elif norm == "none":
+        return None
+    else:
+        raise ValueError(f"unknown norm: {norm!r} (batch|batch-subN|group|none)")
+    block.add_module(name, layer)
+    return name
+
+
+def apply_norm(block: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """``block``'s normalization sublayer (:func:`add_norm`) applied to ``x``."""
+    return x if block.norm_name is None else getattr(block, block.norm_name)(x, train)
 
 
 class ConvBlock(nn.Module):
-    """Conv(k3, SAME, stride) + BatchNorm + LeakyReLU(0.01)."""
+    """Conv(k3, SAME, stride) + norm + LeakyReLU(0.01); ``torch_compat`` pads
+    (1, 1) as the reference does."""
 
     def __init__(
         self,
@@ -219,19 +421,21 @@ class ConvBlock(nn.Module):
         stride: int = 2,
         dtype: torch.dtype = torch.float32,
         norm: str = "batch",
+        torch_compat: bool = False,
         generator: torch.Generator,
     ):
         super().__init__()
-        _check_norm(norm)
-        self.Conv_0 = Conv(in_features, features, stride=stride, dtype=dtype, generator=generator)
-        self.BatchNorm_0 = BatchNorm(features, dtype=dtype)
+        self.Conv_0 = Conv(in_features, features, stride=stride, dtype=dtype, generator=generator,
+                           torch_pad=torch_compat)
+        self.norm_name = add_norm(self, norm, features, dtype)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return F.leaky_relu(self.BatchNorm_0(self.Conv_0(x), train), _LEAKY_SLOPE)
+        return F.leaky_relu(apply_norm(self, self.Conv_0(x), train), _LEAKY_SLOPE)
 
 
 class DeconvBlock(nn.Module):
-    """ConvTranspose(k3, s2, SAME) + BatchNorm + LeakyReLU(0.01): doubles H and W."""
+    """ConvTranspose(k3, s2, SAME) + norm + LeakyReLU(0.01): doubles H and W.
+    ``torch_compat`` uses torch's transposed conv (:class:`TorchConvTranspose`)."""
 
     def __init__(
         self,
@@ -240,15 +444,35 @@ class DeconvBlock(nn.Module):
         *,
         dtype: torch.dtype = torch.float32,
         norm: str = "batch",
+        torch_compat: bool = False,
         generator: torch.Generator,
     ):
         super().__init__()
-        _check_norm(norm)
-        self.ConvTranspose_0 = ConvTranspose(in_features, features, dtype=dtype, generator=generator)
-        self.BatchNorm_0 = BatchNorm(features, dtype=dtype)
+        cls = TorchConvTranspose if torch_compat else ConvTranspose
+        self.ConvTranspose_0 = cls(in_features, features, dtype=dtype, generator=generator)
+        self.norm_name = add_norm(self, norm, features, dtype)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return F.leaky_relu(self.BatchNorm_0(self.ConvTranspose_0(x), train), _LEAKY_SLOPE)
+        return F.leaky_relu(apply_norm(self, self.ConvTranspose_0(x), train), _LEAKY_SLOPE)
+
+
+class S2DStem(nn.Module):
+    """JAX ``S2DStem`` (``vae.py:312-350``): fold 2×2 pixel blocks into
+    channels (channel ``(dy·2 + dx)·C + c``), then Conv(k3, s1, SAME) + norm
+    + LeakyReLU; the same [B, features, H/2, W/2] as the stride-2 ConvBlock
+    it replaces. NCHW in and out."""
+
+    def __init__(self, in_features: int, features: int, *, dtype, norm, generator):
+        super().__init__()
+        self.Conv_0 = Conv(4 * in_features, features, stride=1, dtype=dtype, generator=generator)
+        self.norm_name = add_norm(self, norm, features, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        h, w = x.shape[2], x.shape[3]
+        if h % 2 or w % 2:
+            raise ValueError(f"s2d stem needs even spatial dims, got {h}x{w}")
+        x = _space_to_depth(x.permute(0, 2, 3, 1), 2).permute(0, 3, 1, 2)
+        return F.leaky_relu(apply_norm(self, self.Conv_0(x), train), _LEAKY_SLOPE)
 
 
 class BlockStack(nn.Module):
@@ -270,13 +494,18 @@ class BlockStack(nn.Module):
 
 
 class Encoder(BlockStack):
-    """Stride-2 ConvBlock stack: NHWC images → NCHW features."""
+    """Stride-2 ConvBlock stack (the first an :class:`S2DStem` when ``stem="s2d"``):
+    NHWC images → NCHW features."""
 
-    def __init__(self, in_channels: int, hidden_dims: Sequence[int], *, dtype, norm, generator):
+    def __init__(self, in_channels: int, hidden_dims: Sequence[int], *, dtype, norm, generator,
+                 stem: str = "conv", torch_compat: bool = False):
         dims = (in_channels, *hidden_dims)
-        super().__init__(
-            [ConvBlock(dims[i], dims[i + 1], dtype=dtype, norm=norm, generator=generator) for i in range(len(hidden_dims))]
-        )
+        kw = dict(dtype=dtype, norm=norm, generator=generator)
+        super().__init__([
+            S2DStem(dims[i], dims[i + 1], **kw) if i == 0 and stem == "s2d"
+            else ConvBlock(dims[i], dims[i + 1], torch_compat=torch_compat, **kw)
+            for i in range(len(hidden_dims))
+        ])
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         return super().forward(x.permute(0, 3, 1, 2), train)
@@ -285,10 +514,11 @@ class Encoder(BlockStack):
 class Decoder(BlockStack):
     """DeconvBlock stack over ``hidden_dims`` (reversed order, e.g. (256, 128, 64, 32))."""
 
-    def __init__(self, hidden_dims: Sequence[int], *, dtype, norm, generator):
+    def __init__(self, hidden_dims: Sequence[int], *, dtype, norm, generator, torch_compat: bool = False):
         super().__init__(
             [
-                DeconvBlock(hidden_dims[i], hidden_dims[i + 1], dtype=dtype, norm=norm, generator=generator)
+                DeconvBlock(hidden_dims[i], hidden_dims[i + 1], dtype=dtype, norm=norm, torch_compat=torch_compat,
+                            generator=generator)
                 for i in range(len(hidden_dims) - 1)
             ]
         )
@@ -297,9 +527,11 @@ class Decoder(BlockStack):
 class FinalLayer(nn.Module):
     """DeconvBlock + Conv(k3, s1) → NHWC logits."""
 
-    def __init__(self, in_features: int, features: int, out_channels: int, *, dtype, norm, generator, output_logit_bias=None):
+    def __init__(self, in_features: int, features: int, out_channels: int, *, dtype, norm, generator,
+                 output_logit_bias=None, torch_compat: bool = False):
         super().__init__()
-        self.DeconvBlock_0 = DeconvBlock(in_features, features, dtype=dtype, norm=norm, generator=generator)
+        self.DeconvBlock_0 = DeconvBlock(in_features, features, dtype=dtype, norm=norm, torch_compat=torch_compat,
+                                         generator=generator)
         self.Conv_0 = Conv(
             features, out_channels, stride=1, dtype=dtype, generator=generator,
             bias_value=_logit_bias_init(output_logit_bias),
@@ -309,13 +541,36 @@ class FinalLayer(nn.Module):
         return self.Conv_0(self.DeconvBlock_0(x, train)).permute(0, 2, 3, 1)
 
 
+class D2SHead(nn.Module):
+    """JAX ``D2SHead`` (``vae.py:428-480``): Conv(k3, s1) + norm + LeakyReLU +
+    Conv(k3, s1) to 4·out_ch channels at half the output resolution, then a
+    2×2 depth-to-space unfold → NHWC logits. The last conv's bias lands on
+    every output pixel, so it carries the output-logit bias."""
+
+    def __init__(self, in_features: int, features: int, out_channels: int, *, dtype, norm, generator,
+                 output_logit_bias=None):
+        super().__init__()
+        self.out_channels = out_channels
+        self.Conv_0 = Conv(in_features, features, stride=1, dtype=dtype, generator=generator)
+        self.norm_name = add_norm(self, norm, features, dtype)
+        self.Conv_1 = Conv(
+            features, 4 * out_channels, stride=1, dtype=dtype, generator=generator,
+            bias_value=_logit_bias_init(output_logit_bias),
+        )
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        x = F.leaky_relu(apply_norm(self, self.Conv_0(x), train), _LEAKY_SLOPE)
+        return _depth_to_space(self.Conv_1(x).permute(0, 2, 3, 1), 2, self.out_channels)
+
+
 class VanillaVAE(nn.Module):
     """Convolutional VAE over NHWC piano-roll images.
 
-    Only the reference layout is ported: ``stem="conv"``, ``head="deconv"``,
-    ``norm="batch"``; ``num_classes`` > 0 makes it conditional. Parameters
-    are created on the CPU from ``generator`` (seed 0 when none is given);
-    move the model with ``.to``.
+    ``num_classes`` > 0 makes it conditional; ``stem``, ``head``, ``norm``,
+    ``torch_compat``, ``remat`` and ``verbose`` select the variants of the
+    module docstring, with the JAX package's refusals (``ValueError``).
+    Parameters are created on the CPU from ``generator`` (seed 0 when none
+    is given); move the model with ``.to``.
     """
 
     def __init__(
@@ -331,13 +586,26 @@ class VanillaVAE(nn.Module):
         stem: str = "conv",
         head: str = "deconv",
         norm: str = "batch",
+        torch_compat: bool = False,
+        remat: bool = False,
+        verbose: bool = False,
         num_classes: int = 0,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if stem != "conv" or head != "deconv":
-            raise NotImplementedError("only stem='conv' and head='deconv' are ported to the PyTorch package yet")
-        _check_norm(norm)
+        if stem not in ("conv", "s2d"):
+            raise ValueError(f"unknown stem: {stem!r} (conv|s2d)")
+        if head not in ("deconv", "d2s"):
+            raise ValueError(f"unknown head: {head!r} (deconv|d2s)")
+        if torch_compat and (stem != "conv" or head != "deconv"):
+            raise ValueError("torch_compat requires the reference stem and head")
+        if torch_compat and norm != "batch":
+            raise ValueError("torch_compat requires norm='batch' (reference BatchNorm2d parity)")
+        if torch_compat and num_classes > 0:
+            raise ValueError(
+                "torch_compat is the reference-parity mode; the reference has no conditional "
+                "variant (num_classes widens the latent-head/decoder-input layers)"
+            )
         self.num_classes = int(num_classes)
         self.in_channels = in_channels
         self.latent_dim = latent_dim
@@ -347,25 +615,38 @@ class VanillaVAE(nn.Module):
         self.dtype = dtype
         self.fused_reparam = fused_reparam
         self.output_logit_bias = output_logit_bias
-        self.norm = norm
+        self.stem, self.head, self.norm = stem, head, norm
+        self.torch_compat, self.remat, self.verbose = bool(torch_compat), bool(remat), bool(verbose)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         self._build(gen)
 
     def _build(self, gen: torch.Generator) -> None:
         kw = dict(dtype=self.dtype, norm=self.norm, generator=gen)
         rev = tuple(reversed(self.hidden_dims))
-        self.encoder = Encoder(self.in_channels, self.hidden_dims, **kw)
+        self.encoder = Encoder(self.in_channels, self.hidden_dims, stem=self.stem, torch_compat=self.torch_compat, **kw)
         self._build_heads(gen)
-        self.decoder = Decoder(rev, **kw)
-        self.final_layer = FinalLayer(
-            rev[-1], rev[-1], self.out_channels, output_logit_bias=self.output_logit_bias, **kw
-        )
+        self.decoder = Decoder(rev, torch_compat=self.torch_compat, **kw)
+        if self.head == "d2s":
+            self.final_layer = D2SHead(rev[-1], rev[-1], self.out_channels, output_logit_bias=self.output_logit_bias, **kw)
+        else:
+            self.final_layer = FinalLayer(
+                rev[-1], rev[-1], self.out_channels, output_logit_bias=self.output_logit_bias,
+                torch_compat=self.torch_compat, **kw,
+            )
 
     def _build_heads(self, gen: torch.Generator) -> None:
         kw = dict(dtype=self.dtype, generator=gen)
         self.fc_mu = Dense(self.flattened_size + self.num_classes, self.latent_dim, **kw)
         self.fc_var = Dense(self.flattened_size + self.num_classes, self.latent_dim, **kw)
         self.decoder_input = Dense(self.latent_dim + self.num_classes, self.flattened_size, **kw)
+
+    def _stack(self, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """Run the conv stack ``name`` (encoder, decoder or final_layer),
+        under :func:`remat_call` when ``remat`` is on and autograd records."""
+        module = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return remat_call(module, x, train)
+        return module(x, train)
 
     @property
     def last_conv_size(self) -> int:
@@ -384,25 +665,36 @@ class VanillaVAE(nn.Module):
         """NHWC images → (mu, log_var); the features are flattened in NHWC
         order. A conditional model's heads also see the one-hot of ``y``;
         ``pre_latents`` stays the unconditioned features."""
-        h = self.encoder(x, train)
+        trace_range(self.verbose, "encode/input", x)
+        h = self._stack("encoder", x, train)
+        trace_range(self.verbose, "encode/conv_out", h, nchw=True)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         hc = torch.cat([h, class_onehot(self, y, "encode")], dim=-1) if self.num_classes > 0 else h
-        return EncoderOutput(mu=self.fc_mu(hc), log_var=self.fc_var(hc), pre_latents=h)
+        mu, log_var = self.fc_mu(hc), self.fc_var(hc)
+        trace_range(self.verbose, "encode/mu", mu)
+        trace_range(self.verbose, "encode/log_var", log_var)
+        return EncoderOutput(mu=mu, log_var=log_var, pre_latents=h)
 
     def decode_logits(self, z: torch.Tensor, train: bool = False, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Latents (and a conditional model's labels) → NHWC logits,
         center-cropped to ``input_dim`` when the decoder's natural size
         differs. Always contiguous."""
         s = self.last_conv_size
+        trace_range(self.verbose, "decode/latents", z)
         if self.num_classes > 0:
             z = torch.cat([z.to(self.dtype), class_onehot(self, y, "decode")], dim=-1)
-        h = self.decoder_input(z).reshape(-1, s, s, self.hidden_dims[-1]).permute(0, 3, 1, 2)
-        return self._decode_features(h, train)
+        h = self.decoder_input(z).reshape(-1, s, s, self.hidden_dims[-1])
+        trace_range(self.verbose, "decode/decoder_input", h)
+        return self._decode_features(h.permute(0, 3, 1, 2), train, trace=self.verbose)
 
-    def _decode_features(self, h: torch.Tensor, train: bool) -> torch.Tensor:
+    def _decode_features(self, h: torch.Tensor, train: bool, trace: bool = False) -> torch.Tensor:
         """NCHW features at the latent grid → NHWC logits through the
-        decoder and the final layer, cropped to ``input_dim``; contiguous."""
-        logits = self.final_layer(self.decoder(h, train), train)
+        decoder and the final layer, cropped to ``input_dim``; contiguous.
+        ``trace`` prints the decoder's and the head's outputs."""
+        h = self._stack("decoder", h, train)
+        trace_range(trace, "decode/deconv_out", h, nchw=True)
+        logits = self._stack("final_layer", h, train)
+        trace_range(trace, "decode/logits", logits)
         d = self.decoded_size
         if d != self.input_dim:
             off = (d - self.input_dim) // 2

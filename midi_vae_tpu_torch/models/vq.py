@@ -2,7 +2,10 @@
 of ``midi_vae_tpu/models/vq.py``).
 
 The conv trunks are the Gaussian models' (``models/vae.py``,
-``models/folded.py``); only the bottleneck differs: a 1×1 projection to
+``models/folded.py``), with their ``stem``, ``head``, ``norm`` and
+``remat`` variants (the quantizer stays outside the rematted stacks, as
+in JAX; ``verbose`` is stored and prints nothing, as JAX's VQ models);
+only the bottleneck differs: a 1×1 projection to
 the code dimension D, a nearest-code quantizer over an EMA codebook of K
 vectors, and a 1×1 projection back. The latent stays spatial: an
 ``[s, s]`` grid of code indices, s = input_dim / 2^stages.
@@ -152,7 +155,7 @@ class VQVAE(VanillaVAE):
 
     def _encode_spatial(self, x: torch.Tensor, train: bool):
         """NHWC images → (z_e NHWC [B, s, s, D], NCHW trunk features)."""
-        h = self.encoder(x, train)
+        h = self._stack("encoder", x, train)
         return self.to_latent(h).permute(0, 2, 3, 1), h
 
     @staticmethod
@@ -183,6 +186,12 @@ class VQVAE(VanillaVAE):
         s = self.last_conv_size
         z_q, _ = self.quantizer(z.reshape(-1, s, s, self.latent_dim), False)
         return self._decode_from_spatial(z_q, train)
+
+    def decode(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Flattened latent → reconstruction probabilities, through the
+        quantizer (VanillaVAE's ``decode`` passes labels, which a VQ model
+        does not take)."""
+        return torch.sigmoid(self.decode_logits(z, train))
 
     def decode_indices(self, idx: torch.Tensor) -> torch.Tensor:
         """[B, s, s] code grid → reconstruction probabilities [B, H, W, C]."""

@@ -17,10 +17,20 @@ A stdlib ``ThreadingHTTPServer`` around :class:`InferenceService`:
   [...]}``: each roll's first ``keep_cols`` code-grid time columns kept,
   the rest written by the prior (``generate --mode continue``);
 - ``GET /healthz``: liveness, the model, ``conditional`` and
-  ``num_classes``, the attached prior and the batchers' counters.
+  ``num_classes``, the attached prior, the artifact (``--artifact``) and
+  the batchers' counters.
 
 Run: ``python -m midi_vae_tpu_torch.serving.server --checkpoint CKPT [--prior PRIOR] --port 8000``
-(on the GPU; ``--cpu`` on the CPU).
+or ``--artifact DIR`` (on the GPU; ``--cpu`` on the CPU).
+
+**Exported artifacts** (``--artifact DIR``, ``interop/aot_export.py``):
+the ``torch.export`` programs back every endpoint, with no model code or
+checkpoint: /reconstruct and /encode through the batchers, /sample as the
+exported ``decode`` of z drawn here as the checkpoint server draws it (or,
+with a prior baked in at export, the loader's two-stage sampler, whose
+``top_p`` is fixed at export), /interpolate from the exported ``encode`` and
+``decode``. /continue needs a checkpoint-backed prior and is refused, as
+in JAX; so is ``--prior`` beside ``--artifact``.
 
 For a VQ checkpoint /encode's ``mu`` is the flattened pre-quantization
 latent [N, s·s·D] (``log_var`` zero), /reconstruct and /interpolate decode
@@ -54,8 +64,7 @@ application/x-npy``. The npy /encode answer is one [N, 2·latent_dim]
 array, ``mu ‖ log_var``. Errors are always JSON: 400 for the client's
 faults, 413 for an oversized body, 500 for the server's own.
 
-Not ported yet: ``--artifact`` (``torch.export`` artifacts, ROADMAP item
-15) and ``--compilation-cache`` (item 17).
+Not ported yet: ``--compilation-cache`` (ROADMAP Queue 1 item 17e).
 """
 
 from __future__ import annotations
@@ -76,7 +85,7 @@ from midi_vae_tpu_torch.serving.batcher import MicroBatcher, _bucket
 from midi_vae_tpu_torch.serving.wire import BINARY_CONTENT_TYPES, NPY_CONTENT_TYPE, npy_dumps, npy_loads
 
 
-def _not_ported(what: str, item: int) -> str:
+def _not_ported(what: str, item) -> str:
     return f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 item {item})"
 
 
@@ -109,8 +118,46 @@ class InferenceService:
         self._init_from_parts(model, image_size, channels, max_batch=max_batch, max_wait_ms=max_wait_ms)
         return self
 
+    @classmethod
+    def from_artifact(
+        cls, artifact_dir: str, *, max_batch: int = 64, max_wait_ms: float = 2.0, device: DeviceLike = "cuda",
+    ) -> "InferenceService":
+        """A service over an exported artifact directory on ``device``: the
+        programs of ``interop/aot_export.py`` back every endpoint but
+        /continue; no model code or checkpoint is read."""
+        from midi_vae_tpu_torch.interop.aot_export import AOTServingBundle
+
+        bundle = AOTServingBundle(artifact_dir, device=device)
+        m = bundle.manifest
+        self = cls.__new__(cls)
+        self.model, self._bundle, self.device = None, bundle, bundle.device
+        self.model_name = f"{m.get('model', 'unknown')} (AOT artifact)"
+        self.artifact_info = {"dir": artifact_dir, "platforms": m["platforms"], "torch_version": m["torch_version"],
+                              "programs": sorted(m["programs"])}
+        self.image_size, self.channels = int(m["image_size"]), int(m["channels"])
+        self.latent_dim = int(m["latent_dim"])
+        self.latent_kind = m.get("latent_kind", "gaussian")
+        self.prior, self.prior_info = None, m.get("prior")
+        self.num_classes = bundle.num_classes
+        self.conditional = bundle.conditional
+        item_shape = (self.image_size, self.image_size, self.channels)
+        kw = dict(max_batch=max_batch, max_wait_ms=max_wait_ms, item_shape=item_shape, labeled=self.conditional)
+        self.reconstruct = MicroBatcher(self._artifact_rows(bundle.reconstruct), **kw)
+        self.encode = MicroBatcher(self._artifact_rows(bundle.encode), **kw)
+        return self
+
+    @staticmethod
+    def _artifact_rows(program):
+        """A batcher ``fn`` over an exported program: rows (and labels) in, numpy out."""
+
+        def fn(rows: np.ndarray, labels: Optional[np.ndarray] = None) -> np.ndarray:
+            args = (rows,) if labels is None else (rows, labels)
+            return program(*args).float().cpu().numpy()
+
+        return fn
+
     def _init_from_parts(self, model, image_size, channels, *, max_batch=64, max_wait_ms=2.0):
-        self.model = model
+        self.model, self._bundle, self.artifact_info = model, None, None
         self.device = next(model.parameters()).device
         self.model_name = type(model).__name__
         self.image_size, self.channels = image_size, channels
@@ -220,6 +267,8 @@ class InferenceService:
         if not (1 <= n <= self.MAX_SAMPLES):
             raise ValueError(f"n must be in [1, {self.MAX_SAMPLES}], got {n}")
         self._check_sampling(temperature, top_p)
+        if self._bundle is not None:
+            return self._sample_from_artifact(n, seed, label, temperature, top_p)
         if self.prior is None:
             if temperature != 1.0 or top_p is not None:
                 raise ValueError("temperature and top_p apply to prior-backed (two-stage) sampling; this "
@@ -233,6 +282,33 @@ class InferenceService:
         with torch.inference_mode():
             return self.model.decode_indices(idx).float().cpu().numpy()[:n]
 
+    def _sample_from_artifact(self, n: int, seed: int, label, temperature: float, top_p: Optional[float]) -> np.ndarray:
+        """/sample over an exported artifact (JAX ``serving/server.py:318-344``):
+        the baked two-stage sampler when the artifact carries a prior, else
+        z drawn as :func:`sample_prior` draws it, through the exported decode."""
+        from midi_vae_tpu_torch.evaluation.inference import normal_draw
+
+        b = _bucket(n)
+        two_stage = hasattr(self._bundle, "sample")
+        if temperature != 1.0 and not two_stage:
+            raise ValueError("temperature applies to prior-backed (two-stage) sampling; this "
+                             "deployment has no code prior attached")
+        if top_p is not None:
+            raise ValueError("top_p needs a checkpoint-backed code prior (--prior); the artifact's "
+                             "sampler bakes its sampling rule at export time")
+        if two_stage:
+            y = self._prior_labels(label, n, b)
+            out = self._bundle.sample(seed, temperature, y if y is not None else np.zeros(b, np.int32))
+        elif self.latent_kind == "vq":
+            raise ValueError("/sample is unavailable for this VQ-VAE artifact; re-export with --prior to "
+                             "bake in the two-stage sampler, or serve the checkpoint (--checkpoint [--prior])")
+        else:
+            y = self.validate_labels(label, n)
+            z = normal_draw((b, self.latent_dim), seed, self.device)
+            args = (z,) if y is None else (z, np.concatenate([y, np.zeros(b - n, np.int32)]))
+            out = self._bundle.decode(*args)
+        return out.float().cpu().numpy()[:n]
+
     def continue_rolls(self, x: np.ndarray, keep_cols: int, seed: int = 0, label=None, temperature: float = 1.0,
                        top_p: Optional[float] = None) -> np.ndarray:
         """Two-stage continuation of [N, H, W, C] rolls: encode to code grids,
@@ -242,7 +318,8 @@ class InferenceService:
         from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
 
         if self.prior is None:
-            raise ValueError("/continue needs a code prior attached (--prior)")
+            raise ValueError("/continue needs a code prior attached (--prior, with --checkpoint); exported "
+                             "artifacts bake a fixed sampler and cannot encode-and-continue")
         s = self.model.last_conv_size
         if not (0 < keep_cols < s):
             raise ValueError(f"keep_cols must be in [1, {s - 1}] (code grid is {s}x{s}), got {keep_cols}")
@@ -278,9 +355,25 @@ class InferenceService:
         for name, arr in (("a", a), ("b", b)):
             if tuple(arr.shape) != expect:
                 raise ValueError(f"'{name}' must have shape {expect}, got {tuple(arr.shape)}")
-        yk = self._labels_on_device(self.validate_labels(label, 1))
+        y = self.validate_labels(label, 1)
+        if self._bundle is not None:
+            return self._interpolate_from_artifact(a, b, steps, mode, y)
+        yk = self._labels_on_device(y)
         ends = self._to_device(np.stack([a, b]))
         return interpolate(self.model, ends[:1], ends[1:], steps=steps, mode=mode, **yk)[:, 0].float().cpu().numpy()
+
+    def _interpolate_from_artifact(self, a, b, steps: int, mode: str, y) -> np.ndarray:
+        """/interpolate from the exported encode and decode: the posterior
+        means of both ends (one batch of 2), the path between them
+        (``evaluation/inference.py`` ``latent_path``), one decode of every step."""
+        from midi_vae_tpu_torch.evaluation.inference import latent_path
+
+        def labels(k):
+            return () if y is None else (np.full((k,), int(y[0]), np.int32),)
+
+        mu = self._bundle.encode(np.stack([a, b]).astype(np.float32), *labels(2))[:, : self.latent_dim].float()
+        zs = latent_path(mu[:1], mu[1:], steps, mode)
+        return self._bundle.decode(zs.reshape(steps, -1), *labels(steps)).float().cpu().numpy()
 
     def close(self):
         self.reconstruct.close()
@@ -321,6 +414,7 @@ def make_handler(service: InferenceService):
                     "conditional": service.conditional,
                     "num_classes": service.num_classes,
                     "prior": service.prior_info,
+                    "artifact": service.artifact_info,
                     "batches_dispatched": service.reconstruct.batches_dispatched,
                     "requests_served": service.reconstruct.requests_served,
                     "encode_batches_dispatched": service.encode.batches_dispatched,
@@ -459,16 +553,22 @@ def serve(
     artifact: Optional[str] = None,
     prior: Optional[str] = None,
 ) -> HTTPServer:
-    """Start serving ``checkpoint`` on ``device`` in a background thread and
-    return the server (``port=0`` picks a free port: ``server_address[1]``);
-    ``prior`` attaches a code prior to a VQ checkpoint. Stop it with
-    ``shutdown()``, ``server_close()`` and ``service.close()``."""
+    """Start serving ``checkpoint`` or an exported ``artifact`` directory on
+    ``device`` in a background thread and return the server (``port=0``
+    picks a free port: ``server_address[1]``); ``prior`` attaches a code
+    prior to a VQ checkpoint (an artifact carries its own from export).
+    Stop it with ``shutdown()``, ``server_close()`` and ``service.close()``."""
+    if (checkpoint is None) == (artifact is None):
+        raise ValueError("pass exactly one of checkpoint= or artifact=")
     if artifact is not None:
-        raise NotImplementedError(_not_ported("serving an exported artifact (torch.export)", 15))
-    if checkpoint is None:
-        raise ValueError("pass checkpoint=")
-    httpd = make_server(InferenceService(checkpoint, device=device, prior_path=prior), host, port)
-    print(f"serving {checkpoint} on http://{host}:{httpd.server_address[1]} ({httpd.service.device})")
+        if prior is not None:
+            raise ValueError("artifacts carry their prior from export time (aot_export --prior); "
+                             "--prior applies to --checkpoint serving")
+        service = InferenceService.from_artifact(artifact, device=device)
+    else:
+        service = InferenceService(checkpoint, device=device, prior_path=prior)
+    httpd = make_server(service, host, port)
+    print(f"serving {checkpoint or artifact} on http://{host}:{httpd.server_address[1]} ({httpd.service.device})")
     return httpd
 
 
@@ -476,23 +576,24 @@ def cli(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(description="Serve a trained VAE checkpoint over HTTP")
     source = parser.add_mutually_exclusive_group(required=True)
     source.add_argument("--checkpoint", help="Training checkpoint (.pt of this package)")
-    source.add_argument("--artifact", metavar="DIR", help="Exported artifact (not ported yet, ROADMAP item 15)")
+    source.add_argument("--artifact", metavar="DIR",
+                        help="Exported artifact directory (interop/aot_export.py): serve its torch.export "
+                             "programs, no model code or checkpoint needed")
     parser.add_argument("--prior", metavar="PATH", default=None,
                         help="Trained code prior (cli/train_prior.py) for a VQ checkpoint: /sample draws "
                              "codes ancestrally instead of from the EMA code marginal, and /continue opens")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--compilation-cache", type=str, default=None, metavar="DIR",
-                        help="Persistent compilation cache (not ported yet, ROADMAP item 17)")
+                        help="Persistent compilation cache (not ported yet, ROADMAP item 17e)")
     parser.add_argument("--cpu", action="store_true", help="Serve on the CPU instead of the GPU")
     parser.add_argument("--skip-backend-check", action="store_true",
                         help="Accepted for parity; the GPU check is the device's own and always runs")
     args = parser.parse_args(argv)
-    if args.artifact is not None:
-        raise NotImplementedError(_not_ported("--artifact (torch.export artifacts)", 15))
     if args.compilation_cache:
-        raise NotImplementedError(_not_ported("--compilation-cache", 17))
-    httpd = serve(args.checkpoint, args.port, args.host, device="cpu" if args.cpu else "cuda", prior=args.prior)
+        raise NotImplementedError(_not_ported("--compilation-cache", "17e"))
+    httpd = serve(args.checkpoint, args.port, args.host, device="cpu" if args.cpu else "cuda",
+                  artifact=args.artifact, prior=args.prior)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -73,12 +73,7 @@ def check_ported(config: TrainConfig) -> None:
         ((config.num_devices or 1) != 1, "--num-devices > 1 (multi-GPU data parallelism)", 16),
         (config.mesh_slices, "--mesh-slices (multi-slice data parallelism)", 16),
         (config.step_impl != "auto", "--step-impl shard_map", 16),
-        (config.stem != "conv" or config.head != "deconv", "--stem s2d / --head d2s", 17),
-        (config.norm != "batch", f"--norm {config.norm}", 17),
-        (config.remat, "--remat", 17),
-        (config.torch_compat, "--torch-compat", 17),
-        (config.verbose, "--verbose (forward range tracing)", 17),
-        (config.compilation_cache, "--compilation-cache", 17),
+        (config.compilation_cache, "--compilation-cache", "17e"),
     ]
     for missing, what, item in gaps:
         if missing:
@@ -199,7 +194,12 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         hidden_dims=config.hidden_dims,
         dtype=dtype,
         fused_reparam=config.fused,
+        stem=config.stem,
+        head=config.head,
         fold=config.fold,
+        verbose=config.verbose,
+        remat=config.remat,
+        torch_compat=config.torch_compat,
         output_logit_bias=output_bias,
         norm=config.norm,
         num_classes=config.num_classes if config.conditional else 0,

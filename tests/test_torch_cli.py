@@ -14,6 +14,7 @@ import dataclasses
 import glob
 import json
 import os
+import re
 import tempfile
 
 import numpy as np
@@ -329,16 +330,16 @@ def test_cli_runs_on_the_gpu_unless_asked_for_the_cpu():
         (dict(grad_accum=2), 7), (dict(scan_steps=8), 9), (dict(checkpoint_backend="orbax"), 10),
         (dict(num_devices=2), 16), (dict(mesh_slices=2), 16), (dict(step_impl="shard_map"), 16),
         (dict(conditional=True), 17), (dict(stem="s2d"), 17), (dict(norm="group"), 17), (dict(remat=True), 17),
-        (dict(torch_compat=True), 17), (dict(verbose=True), 17), (dict(compilation_cache="/c"), 17),
+        (dict(torch_compat=True), 17), (dict(verbose=True), 17), (dict(compilation_cache="/c"), "17e"),
         (dict(optimizer="Lion"), 17), (dict(scheduler="cosine"), 17), (dict(arch="MLPVAE"), 17),
         (dict(dataset_name="rrd:/x.rrd"), 9),
     ],
 )
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, monkeypatch, overrides, item):
     """Options still open raise naming their ROADMAP item. The cases of items
-    7 and 17a–c (grad_accum, β-TC and MLPVAE, the optimizers and schedules,
-    conditional models) are ported: each trains one epoch on a 256-image
-    corpus and meets its own check."""
+    7 and 17a–d (grad_accum, β-TC and MLPVAE, the optimizers and schedules,
+    conditional models, the model variants) are ported: each trains one
+    epoch on a 256-image corpus and meets its own check."""
     check = next((c for options, c in _PORTED_OPTIONS if options == overrides), None)
     if check is not None:
         monkeypatch.setitem(fetch.SYNTHETIC_SIZES, "vae-lines-synthetic", 256)
@@ -369,7 +370,45 @@ _PORTED_OPTIONS = [
     (dict(scheduler="cosine"), lambda r: r["state"].optimizer.optimizer.param_groups[0]["lr"] == pytest.approx(
         schedules.cosine_lr(scale_lr(0.02, 128), r["total_step"])(r["total_step"] - 1))),
     (dict(arch="MLPVAE"), lambda r: type(r["state"].model).__name__ == "MLPVAE"),
+    (dict(stem="s2d"), lambda r: r["state"].model.stem == "s2d" and hasattr(r["state"].model.encoder, "S2DStem_0")),
+    (dict(norm="group"), lambda r: hasattr(r["state"].model.encoder.ConvBlock_0, "GroupNorm_0")),
+    (dict(remat=True), lambda r: r["state"].model.remat),
+    (dict(torch_compat=True), lambda r: type(r["state"].model.decoder.DeconvBlock_0.ConvTranspose_0).__name__
+     == "TorchConvTranspose"),
+    (dict(verbose=True), lambda r: r["state"].model.verbose),
 ]
+
+
+# each option still refused (train config overrides, or CLI argv) → the flag ROADMAP names it by
+_STILL_REFUSED = [
+    (dict(scan_steps=8), "--scan-steps"), (dict(checkpoint_backend="orbax"), "--checkpoint-backend orbax"),
+    (dict(num_devices=2), "--num-devices"), (dict(mesh_slices=2), "--mesh-slices"),
+    (dict(step_impl="shard_map"), "--step-impl shard_map"), (dict(compilation_cache="/c"), "--compilation-cache"),
+    (dict(pretrained="checkpoint_latest.msgpack"), "--pretrained"), (dict(dataset_name="rrd:/x.rrd"), "rrd:"),
+]
+
+
+def _roadmap_queue1_entries() -> dict:
+    """ROADMAP Queue 1's open entries: item label (``16``, ``17e`` …) → the entry's text."""
+    text = open(os.path.join(_REPO, "ROADMAP.md")).read()
+    queue = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
+    entries = {}
+    for block in re.split(r"\n(?=\d+\. \*\*)", queue)[1:]:
+        title = block.split("**")[1]
+        for label in re.findall(r"\b(\d+[a-e]?)\b", title.split(":")[0]):
+            entries[label] = block
+    return entries
+
+
+@pytest.mark.parametrize("overrides,flag", _STILL_REFUSED, ids=[f for _, f in _STILL_REFUSED])
+def test_refusals_name_the_item_roadmap_lists_them_under(tmp_path, overrides, flag):
+    """Each option still refused names a ROADMAP Queue 1 item whose entry lists it."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item (\w+)") as info:
+        run(small_config(tmp_path, models_dir=None, **overrides), device="cpu")
+    item = re.search(r"ROADMAP Queue 1 item (\w+)", str(info.value)).group(1)
+    entries = _roadmap_queue1_entries()
+    assert item in entries, f"{flag}: item {item} is not an open ROADMAP Queue 1 entry ({sorted(entries)})"
+    assert flag in entries[item], f"{flag}: ROADMAP item {item} does not list it"
 
 
 def test_multihost_flag_raises():

@@ -8,7 +8,9 @@ completion with finite output in [0, 1], PNGs and readable ``.mid`` files
 written; flags of features not ported yet raise ``NotImplementedError``
 naming their ROADMAP item, and the two-stage VQ flags and ``--label``
 refuse an unconditional Gaussian checkpoint (their own paths are
-``tests/test_torch_two_stage_cli.py`` and ``tests/test_torch_conditional.py``).
+``tests/test_torch_two_stage_cli.py`` and ``tests/test_torch_conditional.py``);
+checkpoints of the model variants (a VQVAE with the s2d stem, torch_compat,
+GroupNorm) load in evaluate, generate and serve.
 """
 
 import json
@@ -24,7 +26,7 @@ from midi_vae_tpu.cli.generate import get_parser as jax_generate_parser
 from midi_vae_tpu_torch.cli import evaluate, generate
 from midi_vae_tpu_torch.cli.train import cli as train_cli
 from midi_vae_tpu_torch.evaluation.inference import sample_prior
-from midi_vae_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
 from midi_vae_tpu_torch.midi.smf import read_smf
 
 TRAIN = ["--dataset", "vae-lines-synthetic", "--transform-type", "noaug", "--image-size", "28", "--model", "VanillaVAE",
@@ -143,13 +145,24 @@ def test_unported_generate_flags_raise_with_their_roadmap_item(trained, argv, er
         generate.cli(["--checkpoint", trained["ckpt"], "--cpu"] + argv)
 
 
+# checkpoints of the variants ported since they were refused here: the train CLI's flags for each
+_VARIANT_FLAGS = {
+    "vq": ["--model", "VQVAE", "--stem", "s2d", "--codebook-size", "16"],
+    "torch_compat": ["--torch-compat"],
+    "norm": ["--norm", "group"],
+}
+
+
 @pytest.mark.parametrize("overrides,item", [
     ({"arch": "VQVAE", "stem": "s2d"}, 17), (None, None), ({"torch_compat": True}, 17), ({"norm": "group"}, 17),
 ], ids=["vq", "conditional", "torch_compat", "norm"])
-def test_unported_checkpoints_raise_with_their_roadmap_item(trained, tmp_path, monkeypatch, overrides, item):
-    """Checkpoints of variants still open raise naming their ROADMAP item. A
-    conditional checkpoint is ported: one trained on a 256-image corpus
-    evaluates under the batch labels, IWAE and MIG included."""
+def test_unported_checkpoints_raise_with_their_roadmap_item(trained, tmp_path, monkeypatch, request, overrides, item):
+    """Every checkpoint kind these cases once refused is ported. A
+    conditional checkpoint trained on a 256-image corpus evaluates under the
+    batch labels, IWAE and MIG included. A VQVAE with the s2d stem, a
+    torch_compat VanillaVAE and a GroupNorm one are trained by the CLI with
+    their flags, and evaluate, generate and serve each rebuild the model
+    from the checkpoint's config."""
     if overrides is None:
         monkeypatch.setitem(fetch.SYNTHETIC_SIZES, "vae-lines-synthetic", 256)
         train_cli(TRAIN + ["--conditional", "--models-dir", str(tmp_path / "m"), "--run-name", "c", "--run-id", "1"])
@@ -158,12 +171,31 @@ def test_unported_checkpoints_raise_with_their_roadmap_item(trained, tmp_path, m
         res = evaluate.cli(["--checkpoint", str(ckpt), "--cpu", "--iwae-samples", "2", "--mig"])["test"]
         assert all(np.isfinite(res[k]) for k in ("cross-entropy", "kl", "iwae-2")) and 0.0 <= res["mig"] <= 1.0
         return
-    payload = load_checkpoint(trained["ckpt"])
-    payload["config"].update(overrides)
-    path = str(tmp_path / "c.pt")
-    save_checkpoint(path, payload.pop("state"), **payload)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\b"):
-        evaluate.cli(["--checkpoint", path, "--cpu"])
+    from midi_vae_tpu_torch.serving import server as server_mod
+
+    case = request.node.callspec.id
+    vq = case == "vq"
+    train_cli(TRAIN + _VARIANT_FLAGS[case] + ["--image-size", "32", "--models-dir", str(tmp_path / "m"),
+                                              "--run-name", case, "--run-id", "1"])
+    ckpt = str(tmp_path / "m" / "vae-lines-synthetic" / f"{case}__1" / "checkpoint_latest.pt")
+    assert {k: load_checkpoint(ckpt)["config"][k] for k in overrides} == overrides
+    res = evaluate.cli(["--checkpoint", ckpt, "--cpu"])["test"]
+    assert np.isfinite(res["cross-entropy"])
+    out = tmp_path / "gen"
+    images = generate.cli(["--checkpoint", ckpt, "--cpu", "--mode", "reconstruct", "-n", "2", "--out", str(out)])
+    assert np.all(np.isfinite(images)) and 0.0 <= float(images.min()) and float(images.max()) <= 1.0
+    service = server_mod.InferenceService(ckpt, device="cpu")
+    try:
+        x = np.random.default_rng(0).random((2, 32, 32, 1)).astype(np.float32)
+        model = service.model
+        assert (getattr(model, "stem", None), getattr(model, "torch_compat", False), getattr(model, "norm", None)) == (
+            "s2d" if vq else "conv", case == "torch_compat", "group" if case == "norm" else "batch")
+        with torch.no_grad():
+            want = model.decode(model.encode(torch.from_numpy(x), train=False).mu, train=False).numpy()
+        np.testing.assert_array_equal(service.reconstruct(x), want)
+        assert service.sample(3, 1).shape == (3, 32, 32, 1)
+    finally:
+        service.close()
 
 
 def test_evaluate_codes_out_raises_with_its_roadmap_item(trained):

@@ -47,6 +47,10 @@ _TWO_STAGE_MODULES = ("cli/train_prior.py", "losses/vq.py", "models/prior.py", "
 _VARIANT_MODULES = ("losses/tcvae.py", "models/mlp.py", "train/optim.py", "train/schedules.py")
 
 
+# the model variants' interop and the exported serving artifact
+_ARTIFACT_MODULES = ("interop/aot_export.py", "interop/torch_reference.py")
+
+
 def test_inference_modules_are_among_the_guarded_sources():
     guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(_INFERENCE_MODULES) <= guarded
@@ -60,6 +64,30 @@ def test_two_stage_modules_are_among_the_guarded_sources():
 def test_variant_modules_are_among_the_guarded_sources():
     guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(_VARIANT_MODULES) <= guarded
+
+
+def test_artifact_modules_are_among_the_guarded_sources():
+    guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(_ARTIFACT_MODULES) <= guarded
+
+
+def test_artifact_loader_imports_nothing_of_the_models():
+    """The artifact loader needs torch alone: importing it pulls in no
+    module of ``midi_vae_tpu_torch.models`` (its exporter imports them at
+    call time), with JAX and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        f"for name in {_FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import midi_vae_tpu_torch.interop.aot_export as m\n"
+        "assert hasattr(m, 'AOTServingBundle')\n"
+        "print(' '.join(sorted(n for n in sys.modules if n.startswith('midi_vae_tpu_torch.'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert "midi_vae_tpu_torch.interop.aot_export" in loaded
+    assert not [n for n in loaded if n.startswith("midi_vae_tpu_torch.models")], loaded
 
 
 def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
@@ -80,4 +108,5 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
     assert out.returncode == 0, out.stderr
     imported = out.stdout.split()
     assert len(imported) >= 50
-    assert {"midi_vae_tpu_torch." + m[:-3].replace("/", ".") for m in _VARIANT_MODULES} <= set(imported)
+    assert {"midi_vae_tpu_torch." + m[:-3].replace("/", ".") for m in _VARIANT_MODULES + _ARTIFACT_MODULES} <= set(
+        imported)

@@ -213,6 +213,17 @@ def test_build_model_needs_a_gpu_unless_told_cpu(monkeypatch):
      dict(arch="VanillaVAE", torch_compat=True)],
 )
 def test_unported_variants_raise(kwargs):
+    """These variants were refused until the port had them; each now builds
+    with its flax-named layers (``tests/test_torch_variants.py`` holds them
+    to the JAX package), and its combination with a variant the JAX package
+    refuses beside it raises JAX's ``ValueError``."""
     arch = kwargs.pop("arch")
-    with pytest.raises(NotImplementedError):
-        build_model(arch, in_channels=1, latent_dim=4, input_dim=32, hidden_dims=(8, 16, 16), device="cpu", **kwargs)
+    kw = dict(in_channels=1, latent_dim=4, input_dim=32, hidden_dims=(8, 16, 16), device="cpu")
+    model = build_model(arch, **kw, **kwargs)
+    names = set(model.state_dict())
+    layer = {"stem": "encoder.S2DStem_0.Conv_0.weight", "head": "final_layer.Conv_1.weight",
+             "norm": "encoder.ConvBlock_0.GroupNorm_0.weight", "torch_compat": "decoder.DeconvBlock_0.ConvTranspose_0.weight"}
+    assert layer[next(iter(kwargs))] in names
+    clash = dict(norm="group") if "torch_compat" in kwargs else dict(torch_compat=True)
+    with pytest.raises(ValueError):
+        build_model(arch, **kw, **kwargs, **clash)

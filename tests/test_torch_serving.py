@@ -2,8 +2,8 @@
 ``tests/test_serving.py``), the npy wire, and the HTTP server on port 0
 against the JAX package's ``InferenceService.from_parts`` on the same
 weights, over both wires; the client; the status codes (400, 404, 413,
-500); the served model's dtype for a bf16 checkpoint; the options not
-ported yet.
+500); the served model's dtype for a bf16 checkpoint; the option not
+ported yet and the combinations refused.
 
 Small widths (input 32, hidden (8, 16, 16), latent 4, FoldedVAE fold 4),
 f32 on the CPU. Tolerances: served reconstructions, encodings and
@@ -461,19 +461,23 @@ def test_loader_prefers_ema_weights(tmp_path):
 @pytest.mark.parametrize(
     "call,error,match",
     [
-        (lambda p: server_mod.serve(artifact="dir"), NotImplementedError, "item 15"),
+        (lambda p: server_mod.serve(artifact="dir", prior="prior.pt", device="cpu"), ValueError,
+         "carry their prior from export time"),
         (lambda p: server_mod.serve(p, prior="prior.pt", device="cpu"), ValueError, "needs a VQ-VAE checkpoint"),
-        (lambda p: server_mod.cli(["--artifact", "dir"]), NotImplementedError, "item 15"),
+        (lambda p: server_mod.cli(["--artifact", "dir", "--prior", "x", "--cpu"]), ValueError,
+         "carry their prior from export time"),
         (lambda p: server_mod.cli(["--checkpoint", p, "--prior", "x", "--cpu"]), ValueError, "needs a VQ-VAE"),
         (lambda p: server_mod.cli(["--checkpoint", p, "--compilation-cache", "/c", "--cpu"]), NotImplementedError,
-         "item 17"),
+         "item 17e\\b"),
         (lambda p: server_mod.InferenceService(p, prior_path="x", device="cpu"), ValueError, "needs a VQ-VAE"),
     ],
     ids=["serve_artifact", "serve_prior", "cli_artifact", "cli_prior", "cli_compilation_cache", "service_prior"],
 )
 def test_unported_serving_options_raise_with_their_roadmap_item(tmp_path, call, error, match):
-    """--artifact and --compilation-cache are not ported; --prior is, and
-    refuses this Gaussian checkpoint as the JAX server does."""
+    """--compilation-cache is not ported; --artifact and --prior are, and
+    refuse what the JAX server refuses: --prior beside --artifact (the
+    artifact's prior is baked at export; ``tests/test_torch_aot_export.py``
+    serves artifacts), and --prior on this Gaussian checkpoint."""
     path = str(tmp_path / "c.pt")
     _write_checkpoint(path, dtype=torch.float32)
     with pytest.raises(error, match=match):

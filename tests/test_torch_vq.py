@@ -356,8 +356,8 @@ def test_marginal_sampler_draws_the_usage_distribution():
     (dict(arch="VQVAE", torch_compat=True), ValueError),
     (dict(arch="FoldedVQVAE", head="d2s"), ValueError),
     (dict(arch="FoldedVQVAE", fold=1), ValueError),
-    (dict(arch="VQVAE", stem="s2d"), NotImplementedError),
-    (dict(arch="VanillaVAE", torch_compat=True), NotImplementedError),
+    (dict(arch="FoldedVQVAE", stem="s2d"), ValueError),
+    (dict(arch="VanillaVAE", torch_compat=True, head="d2s"), ValueError),
 ], ids=["fused", "conditional", "torch_compat", "folded_head", "fold", "vq_stem", "vanilla_torch_compat"])
 def test_registry_guards(kwargs, error):
     arch = kwargs.pop("arch")
