@@ -119,11 +119,25 @@ From the repository root. It
    ``sample_codes_autoregressive`` for the seed, ``/sample`` within 1e-5 of
    the checkpoint server with ``--prior``. No fused-ELBO kernel launches
    there;
-13. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
+13. trains on several ranks (``midi_vae_tpu_torch/parallel/``): the
+   flagship fused step over a one-rank NCCL group for 10 steps on the auto
+   and the ``shard_map`` step, each against the non-distributed step on
+   the same weights and batches (losses bitwise equal or within 1e-6
+   relative; K1–K3 once per step; collectives per step by kind; step time
+   beside the train phase's); two ranks sharing the card over gloo at
+   batch 1024 each against one rank at 2048 for 3 auto steps (first loss
+   within 1e-3 relative, the parameter update within 0.1 of one rank's,
+   K1–K3 once per rank per step) and 3 ``shard_map`` steps (finite, the
+   ranks' parameters bitwise equal after each); the train CLI with
+   ``--num-devices 1 --step-impl shard_map`` for one epoch (launches from
+   its forwards) and its refusal of ``--num-devices 2`` on one card. K3 in
+   two halves at Philox counter offsets 0 and b·D equals the unsplit
+   launch bitwise (item 4);
+14. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
    accumulated run, ``variant_launches`` for every run of item 10,
    ``model_variant_launches`` for item 11, ``artifact_launches`` for item
-   12), the card line again, and as the last line ``{"ok": true,
-   "device": {...}}``.
+   12, ``parallel_launches`` for item 13), the card line again, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
 without a CUDA device. TF32 is off for every comparison (cuDNN and
@@ -402,6 +416,29 @@ def check_k3_grad(mu, lv, z, g_z, g_kl, label: str) -> float:
     return worst
 
 
+def k3_offset_check(mu, lv, seed: int, dev) -> None:
+    """K3 split in two halves of rows, the second from Philox counter offset
+    b·D (what two data-parallel ranks launch), against the unsplit launch
+    (bitwise), and each half's draw against the plain draw at its offset
+    (1 f32 ulp)."""
+    half, d = mu.shape[0] // 2, mu.shape[1]
+    z = ops.reparam_kl(mu, lv, seed)[0]
+    parts = [ops.reparam_kl(mu[i * half:(i + 1) * half], lv[i * half:(i + 1) * half], seed, i * half * d)[0]
+             for i in range(2)]
+    check(torch.equal(torch.cat(parts), z), "K3 halves with counter offsets differ from the unsplit launch")
+    worst = 0
+    for i in range(2):
+        zeros = torch.zeros((half, d), dtype=torch.float32, device=dev)
+        eps = ops.reparam_kl(zeros, zeros, seed, i * half * d)[0]
+        plain = ops.k3_eps_plain((half, d), seed, dev, i * half * d)
+        beyond = int(((eps - plain).abs() > ulp(torch.maximum(eps.abs(), plain.abs()))).sum())
+        worst = max(worst, beyond)
+        check(beyond == 0, f"K3 half {i} (offset {i * half * d}) vs plain draw: {beyond} elements beyond 1 f32 ulp")
+    log(f"  K3 {list(mu.shape)} {str(mu.dtype).replace('torch.', '')} as two halves of {half} rows at counter "
+        f"offsets 0 and {half * d}: z bitwise equal to the unsplit launch; each half's draw within 1 f32 ulp of "
+        f"k3_eps_plain at its offset")
+
+
 def k3_phase(dev):
     """K3's draw, forward and backward against their plain versions on the
     card, and their timings."""
@@ -423,6 +460,7 @@ def k3_phase(dev):
     log(f"  K3 eps {list(shape)} vs plain Philox draw: max |err| {float(eps_diff.max()):.3e}, "
         f"{int((eps != eps_plain).sum())} of {eps.numel()} not bitwise equal, {beyond} beyond 2 f32 ulp")
 
+    k3_offset_check(mu, lv, 1234, dev)
     errs = [check_k3(mu, lv, 1234, f"flagship {list(shape)} bf16")]
     ragged = torch.randn((3, 7), generator=gen, device=dev)
     ragged_lv = 0.3 * torch.randn((3, 7), generator=gen, device=dev)
@@ -2124,6 +2162,231 @@ def artifact_phase(dev, root: Path, card: str) -> dict:
     return counts
 
 
+# ================================================================ parallel
+
+PARALLEL_STEPS = 10  # world-1 window of each step implementation
+TWO_RANK_STEPS = 3  # two ranks sharing the card over gloo
+
+
+def flagship_state(dev, weights: dict):
+    """A fused bf16 flagship FoldedVAE from ``weights`` with a fresh AdamW/OneCycle."""
+    model = build_model("FoldedVAE", dtype=torch.bfloat16, fused_reparam=True, seed=0, device=dev, **FLAGSHIP)
+    model.load_state_dict(weights)
+    return create_train_state(model, build_optimizer(model, param_group_label, **OPTIMIZER))
+
+
+def flagship_batches(dev, n: int) -> list:
+    """``n`` on-device batches of BATCH synthetic rolls, the same for every caller."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    return [make_pianoroll_batch(gen, BATCH, device=dev)[0] for _ in range(n)]
+
+
+def param_vector(model) -> torch.Tensor:
+    return torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
+
+
+def update_vector(model) -> torch.Tensor:
+    """The parameters whose gradient is not zero by construction: all but the
+    biases of convs followed by a norm (the norm cancels them, so AdamW moves
+    them by noise; ``tests/test_torch_accum.py`` exempts them the same way)."""
+    return torch.cat([p.detach().float().reshape(-1) for name, p in model.named_parameters()
+                      if not (name.endswith(("Conv_0.bias", "ConvTranspose_0.bias")) and "Block_" in name)])
+
+
+def step_window(state, step, xs: list, dev, rows=None) -> dict:
+    """Steps over ``xs`` (this rank's ``rows`` of each), each closed by reading
+    its loss: losses, per-step ms, kernel launches and collectives."""
+    from midi_vae_tpu_torch.parallel import collectives
+
+    ops.reset_launch_counts()
+    collectives.reset_counts()
+    losses, ms = [], []
+    for x in xs:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, lo, grad_norm = step(state, x if rows is None else x[rows], 0)
+        losses.append(lo.loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(math.isfinite(losses[-1]) and math.isfinite(grad_norm.item()), f"non-finite step: {losses[-1]}")
+    return {"state": state, "losses": losses, "ms": ms, "launches": ops.launch_counts(),
+            "collectives": collectives.counts()}
+
+
+def collective_cost(dev, card: str, n: int = 200) -> None:
+    """Host µs per call of one all-reduce of a BatchNorm layer's statistics
+    (2 × 256 f32) over the one-rank NCCL group: the bare call, and through
+    ``all_reduce_sum`` with its backward (what the auto step issues per
+    layer); issue time alone and with the device's finish."""
+    import torch.distributed as dist
+
+    from midi_vae_tpu_torch.parallel import collectives
+
+    t = torch.zeros(2 * 256, device=dev)
+
+    def wrapped():
+        x = t.clone().requires_grad_(True)
+        collectives.all_reduce_sum(x, None).sum().backward()
+
+    for name, fn in (("dist.all_reduce", lambda: dist.all_reduce(t)), ("all_reduce_sum forward + backward", wrapped)):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        issue_us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize(dev)
+        done_us = (time.perf_counter() - t0) / n * 1e6
+        log(f"  one-rank NCCL {name} of 512 f32: {issue_us:.1f} µs host per call, {done_us:.1f} µs with the device's "
+            f"finish, over {n} calls [{card}]")
+
+
+def _two_rank_worker(rank: int, store: str, weights_path: str, out_path: str) -> None:
+    """One of two ranks on cuda:0 over gloo: the auto step, then the explicit
+    step, from the same weights, on this rank's half of each global batch."""
+    import torch.distributed as dist
+
+    from midi_vae_tpu_torch.parallel.mesh import make_mesh, replicate
+    from midi_vae_tpu_torch.parallel.spmd import make_spmd_train_step
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        weights = torch.load(weights_path, map_location=dev)
+        xs = flagship_batches(dev, TWO_RANK_STEPS)
+        mesh = make_mesh(2)
+        rows = torch.from_numpy(mesh.local_rows(BATCH)).to(dev)
+        kl = kl_weight_schedule("constant", KL_WEIGHT)
+        state = flagship_state(dev, weights)
+        replicate(state.model)
+        auto = step_window(state, make_train_step(kl, fused_loss=True, mesh=mesh), xs, dev, rows)
+        state = flagship_state(dev, weights)
+        step = make_spmd_train_step(kl, mesh, fused_loss=True)
+        equal, spmd_losses = [], []
+        ops.reset_launch_counts()
+        for x in xs:
+            state, lo, _ = step(state, x[rows], 0)
+            spmd_losses.append(lo.loss.item())
+            mine = param_vector(state.model)
+            theirs = mine.clone()
+            dist.broadcast(theirs, src=1)
+            equal.append(bool(torch.equal(mine, theirs)))
+        spmd_launches = ops.launch_counts()
+        launches = [None, None]
+        dist.all_gather_object(launches, (auto["launches"], spmd_launches))
+        if rank == 0:
+            torch.save({"auto_losses": auto["losses"], "auto_ms": auto["ms"], "collectives": auto["collectives"],
+                        "params": update_vector(auto["state"].model).cpu(),
+                        "spmd_losses": spmd_losses, "spmd_equal": equal, "launches": launches}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
+    """Multi-GPU training on one card: the flagship fused step over a
+    one-rank NCCL group on both step implementations against the
+    non-distributed step; two ranks sharing the card over gloo against one
+    rank at twice the batch; the train CLI with ``--num-devices 1
+    --step-impl shard_map`` and its refusal of two devices here. Returns the
+    kernel launches of the one-rank windows and the CLI run."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from midi_vae_tpu_torch.cli import train as train_cli
+    from midi_vae_tpu_torch.parallel.mesh import ensure_process_group, make_mesh
+    from midi_vae_tpu_torch.parallel.spmd import make_spmd_train_step
+
+    t_phase = time.perf_counter()
+    kl = kl_weight_schedule("constant", KL_WEIGHT)
+    weights = build_model("FoldedVAE", dtype=torch.bfloat16, fused_reparam=True, seed=0, device=dev,
+                          **FLAGSHIP).state_dict()
+    xs = flagship_batches(dev, PARALLEL_STEPS)
+    ref = step_window(flagship_state(dev, weights), make_train_step(kl, fused_loss=True), xs, dev)
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+
+    # one rank over NCCL, both step implementations
+    store = ensure_process_group(dev)
+    check(store is not None, "a process group already existed")
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()} on CUDA")
+    mesh = make_mesh(1)
+    for impl, step in (("auto", make_train_step(kl, fused_loss=True, mesh=mesh)),
+                       ("shard_map", make_spmd_train_step(kl, mesh, fused_loss=True))):
+        w = step_window(flagship_state(dev, weights), step, xs, dev)
+        add_counts(total, w["launches"])
+        bitwise = w["losses"] == ref["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(w["losses"], ref["losses"]))
+        check(bitwise or rel <= 1e-6, f"world-1 {impl} losses differ from the non-distributed step: rel {rel}")
+        for key, c in w["launches"].items():
+            check(c == PARALLEL_STEPS, f"{key} launched {c} times in {PARALLEL_STEPS} world-1 {impl} steps")
+        per_step = {k: v / PARALLEL_STEPS for k, v in w["collectives"].items()}
+        med = statistics.median(w["ms"])
+        log(f"  world-1 NCCL {impl}: {PARALLEL_STEPS} losses {'bitwise equal to' if bitwise else f'within {rel:.2e} rel of'}"
+            f" the non-distributed step's; launches {w['launches']}; collectives per step {per_step}; step median "
+            f"{med:.3f} ms ({BATCH / med * 1e3:.1f} samples/s) vs the non-distributed window here "
+            f"{statistics.median(ref['ms']):.3f} ms and the train phase's {flagship['median_ms']:.3f} ms [{card}]")
+        profile_steps(w["state"], step, torch.Generator(device=dev).manual_seed(6), 0, dev, med)
+    collective_cost(dev, card)
+    dist.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
+
+    # two ranks sharing the card over gloo, against one rank at twice their batch
+    tmp = Path(tempfile.mkdtemp(prefix="two_rank_", dir=root / "build"))
+    torch.save(weights, tmp / "weights.pt")
+    t0 = time.perf_counter()
+    mp.start_processes(_two_rank_worker, args=(str(tmp / "store"), str(tmp / "weights.pt"), str(tmp / "out.pt")),
+                       nprocs=2, start_method="spawn", join=True)
+    two = torch.load(tmp / "out.pt", weights_only=False)
+    spawn_s = time.perf_counter() - t0
+    rel = abs(two["auto_losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    check(rel <= 1e-3, f"two-rank first-step loss {two['auto_losses'][0]} vs one rank {ref['losses'][0]}")
+    # parameters after the steps: the two ranks' update against one rank's, relative to its size
+    p0 = update_vector(flagship_state(dev, weights).model).cpu()
+    one = update_vector(step_window(flagship_state(dev, weights), make_train_step(kl, fused_loss=True),
+                                    xs[:TWO_RANK_STEPS], dev)["state"].model).cpu()
+    upd_rel = float((two["params"] - one).norm() / (one - p0).norm())
+    check(upd_rel <= 0.1, f"two-rank parameters after {TWO_RANK_STEPS} steps: update differs by {upd_rel:.3e} rel")
+    for r, (auto_l, spmd_l) in enumerate(two["launches"]):
+        for key in ops.KERNEL_WRAPPERS:
+            check(auto_l[key] == TWO_RANK_STEPS and spmd_l[key] == TWO_RANK_STEPS,
+                  f"rank {r}: {key} launched {auto_l[key]} (auto), {spmd_l[key]} (shard_map) in {TWO_RANK_STEPS} steps")
+    check(all(math.isfinite(v) for v in two["spmd_losses"]) and all(two["spmd_equal"]),
+          f"two-rank shard_map: losses {two['spmd_losses']}, ranks' parameters equal after each step {two['spmd_equal']}")
+    med2 = statistics.median(two["auto_ms"])
+    log(f"  two ranks on cuda:0 over gloo, batch {BATCH // 2} each: first-step loss {two['auto_losses'][0]:.7f} vs one "
+        f"rank at {BATCH} {ref['losses'][0]:.7f} (rel {rel:.2e}, bound 1e-3); K1-K3 once per rank per step; "
+        f"parameters after {TWO_RANK_STEPS} steps: update within {upd_rel:.3e} of one rank's (relative norm, "
+        f"bound 0.1: bf16 compute; the norm-fed conv biases left out); "
+        f"collectives in {TWO_RANK_STEPS} steps {two['collectives']}; step median {med2:.3f} ms "
+        f"({BATCH / med2 * 1e3:.1f} samples/s, one shared card: an observation, not scaling); shard_map losses "
+        f"{[round(v, 6) for v in two['spmd_losses']]}, ranks' parameters bitwise equal after every step; "
+        f"{spawn_s:.1f} s with process start [{card}]")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # the train CLI through its entry point
+    models = root / "build" / "cli_models"
+    argv = ["--config", str(root / "configs" / "folded.yaml"), "--fused", "--bce-targets", "normalized",
+            "--epochs", "1", "--seed", "0", "--models-dir", str(models), "--run-name", "cli"]
+    ops.reset_launch_counts()
+    r = train_cli.cli(argv + ["--num-devices", "1", "--step-impl", "shard_map", "--run-id", "shard-map"])
+    counts = ops.launch_counts()
+    log_cli_run("--num-devices 1 --step-impl shard_map, 1 epoch", r, card)
+    want = expected_cli_launches(r, 1)
+    check(counts == want, f"shard_map CLI run launched {counts}, expected {want}")
+    add_counts(total, counts)
+    try:
+        train_cli.cli(argv + ["--num-devices", "2", "--run-id", "two"])
+    except ValueError as e:
+        check("only 1 available" in str(e), f"--num-devices 2 raised {e!r}")
+        log(f"  --num-devices 2 on one card raises: {e}")
+    else:
+        raise RuntimeError("check failed: --num-devices 2 ran on one card")
+    log(f"  launches {counts} (expected {want}); the phase took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 # ==================================================================== main
 
 
@@ -2168,6 +2431,8 @@ def main() -> int:
     model_counts, model_errs = model_variants_phase(dev, root, card, flagship_window)
     log("the exported serving artifact (aot_export, serve --artifact):")
     artifact_counts = artifact_phase(dev, root, card)
+    log("multi-GPU training (one rank over NCCL, two ranks over gloo, the CLI):")
+    parallel_counts = parallel_phase(dev, root, card, flagship_window)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -2186,6 +2451,7 @@ def main() -> int:
                 "variant_launches": variant_counts[key],
                 "model_variant_launches": model_counts[key],
                 "artifact_launches": artifact_counts[key],
+                "parallel_launches": parallel_counts[key],
                 "max_abs_err": max(errs[key], variant_errs[key], model_errs[key]),
                 "ms": ms,
                 "device_ms": device_ms[key],

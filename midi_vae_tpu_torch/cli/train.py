@@ -4,7 +4,15 @@ The same flags, defaults and precedence as the JAX package's CLI: a
 ``--config`` YAML wins over the CLI's defaults, and a flag typed on the
 command line (also as a unique prefix, ``--epoch``) wins over the YAML.
 The run is on the GPU (``cuda``) and fails without one; ``--cpu`` runs it
-on the CPU. Flags of features the port does not have yet raise
+on the CPU. ``--num-devices N`` (default: every visible GPU) trains on N
+GPUs, one process each, started here (``parallel/launch.py``); asking for
+more GPUs than are visible raises. ``--multihost`` joins the ranks
+``torchrun`` started instead, one process per GPU on every host::
+
+    torchrun --nnodes H --nproc-per-node G --rdzv-endpoint HOST:PORT \
+        -m midi_vae_tpu_torch.cli.train --multihost --config configs/folded.yaml
+
+Flags of features the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item (``train/loop.py``
 ``check_ported``); ``--gpu``/``--cpu-workers``/``--no-cuda`` are accepted
 and inert, as in the JAX package.
@@ -37,7 +45,7 @@ def _norm_name(v: str) -> str:
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="midi-vae-tpu-torch-train",
-        description="Train a MIDI piano-roll VAE with PyTorch on one GPU.",
+        description="Train a MIDI piano-roll VAE with PyTorch on one or more GPUs.",
         add_help=False,
     )
     group = parser.add_argument_group("Help")
@@ -232,11 +240,14 @@ def get_parser() -> argparse.ArgumentParser:
     # Hardware configuration args (train.py:971-1007) --------------------------
     group = parser.add_argument_group("Hardware configuration")
     group.add_argument("--batch-size", dest="batch_size_per_device", type=int, default=128,
-                       help="Batch size per device (one device). Default: %(default)s")
+                       help="Batch size per device; the global batch is this times the devices. "
+                            "Default: %(default)s")
     group.add_argument("--num-devices", type=int, default=None,
-                       help="Number of devices (only 1 is ported; more raises).")
+                       help="Data-parallel devices, one process each (default: every visible GPU; "
+                            "with --cpu, one). More than are visible raises.")
     group.add_argument("--mesh-slices", type=int, default=None,
-                       help="Hierarchical multi-slice data parallelism (not ported yet: raises).")
+                       help="Hierarchical multi-slice data parallelism: a (slice, data) mesh of "
+                            "this many slices over the devices.")
     group.add_argument("--bf16", dest="bf16", action="store_true",
                        help="Use bfloat16 compute (float32 params).")
     group.add_argument("--loss-type", type=str, default="elbo", choices=("elbo", "beta-tc", "vq"),
@@ -252,8 +263,9 @@ def get_parser() -> argparse.ArgumentParser:
     group.add_argument("--fused", action="store_true",
                        help="Use the hand-written fused reparameterization + ELBO kernels (K1-K3).")
     group.add_argument("--step-impl", type=str, default="auto", choices=("auto", "shard_map"),
-                       help="Train-step partitioning: 'auto' (one device) or the explicit SPMD "
-                            "step (not ported yet: raises).")
+                       help="Train-step partitioning: 'auto' (the one-device step on the global "
+                            "batch: BatchNorm over the global batch) or the explicit per-shard step "
+                            "(per-shard BatchNorm, one gradient all-reduce).")
     group.add_argument("--prefetch", type=int, default=2,
                        help="Batches whose host→device copy is kept in flight (host loader). "
                             "Default: %(default)s")
@@ -268,7 +280,8 @@ def get_parser() -> argparse.ArgumentParser:
                             "each batch from pinned host memory on a side stream; 'device' "
                             "forces residency. Default: %(default)s")
     group.add_argument("--multihost", action="store_true",
-                       help="Multi-host training (not ported yet: raises).")
+                       help="Join the ranks torchrun started (one process per GPU, on every host); "
+                            "raises without torchrun's environment.")
     group.add_argument("--cpu", dest="force_cpu", action="store_true",
                        help="Run on the CPU instead of the GPU (the kernels' plain PyTorch versions).")
     # accepted-but-inert reference flags, for launch-script compatibility
@@ -435,15 +448,24 @@ def cli(argv=None):
     args = parser.parse_args(argv)
     if args.no_cuda or getattr(args, "local_rank", None) is not None or args.cpu_workers is not None:
         print("Note: --no-cuda/--gpu/--cpu-workers are accepted but inert; use --cpu for the CPU.")
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported to the PyTorch package yet (ROADMAP Queue 1 item 16)"
-        )
+    device = "cpu" if args.force_cpu else "cuda"
     config = args_to_config(args, argv)
 
     from midi_vae_tpu_torch.train.loop import run
 
-    return run(config, device="cpu" if args.force_cpu else "cuda")
+    if not args.multihost:
+        return run(config, device=device)
+
+    import torch.distributed as dist
+
+    from midi_vae_tpu_torch.parallel.mesh import init_from_torchrun
+
+    dev = init_from_torchrun(device)
+    print(f"torch.distributed initialized: rank {dist.get_rank()} of {dist.get_world_size()} on {dev}")
+    try:
+        return run(config, device=dev)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

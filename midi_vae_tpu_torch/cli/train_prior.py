@@ -22,7 +22,11 @@ result, ``prior_latest.pt`` next to the VQ checkpoint, plugs into
 - ``metrics.jsonl`` is written under ``prior/`` next to the checkpoint.
 
 Runs on the GPU (``cuda``) and fails without one; ``--cpu`` runs on the
-CPU. ``--num-devices`` > 1 raises ``NotImplementedError`` (ROADMAP item 16).
+CPU. ``--num-devices N`` trains on N devices, one process each
+(``parallel/launch.py``): every rank encodes the corpus, the global batch
+is rounded down to a multiple of N (as in the JAX package), each rank
+takes its rows of every step's indices, the gradients and the NLL are
+mean-reduced over the ranks in one all-reduce, and rank 0 logs and saves.
 
     python -m midi_vae_tpu_torch.cli.train_prior --config configs/vq16_fold8.yaml --checkpoint CKPT
 """
@@ -76,7 +80,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="Skip the held-out test-partition NLL after training")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute (f32 parameters and f32 loss math)")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="Data-parallel mesh size (default: 1; more is not ported yet, ROADMAP item 16)")
+                   help="Data-parallel devices, one process each (default: 1)")
     p.add_argument("--scan-steps", type=int, default=16,
                    help="Train steps between two host reads of the losses. 1 = read every step.")
     p.add_argument("--save-every", type=int, default=1, metavar="N",
@@ -222,11 +226,15 @@ def cli(argv=None) -> dict:
     if args.prior_arch == "transformer" and args.features % args.heads:
         raise SystemExit(f"--features ({args.features}) must be divisible by --heads ({args.heads}) "
                          "for the transformer prior (qkv_features = features)")
-    if (args.num_devices or 1) != 1:
-        raise NotImplementedError(
-            "--num-devices > 1 (data-parallel prior training) is not ported to the PyTorch package yet "
-            "(ROADMAP Queue 1 item 16)"
-        )
+    import torch.distributed as dist
+
+    n_dev = args.num_devices or 1
+    if n_dev < 1:
+        raise SystemExit(f"--num-devices must be >= 1, got {args.num_devices}")
+    if n_dev > 1 and not dist.is_initialized():
+        from midi_vae_tpu_torch.parallel.launch import spawn
+
+        return spawn(prior_rank, n_dev, "cpu" if args.cpu else "cuda", sys.argv[1:] if argv is None else argv)
 
     from midi_vae_tpu_torch.cli.generate import _load_model_and_state
     from midi_vae_tpu_torch.core.device import resolve_device
@@ -238,6 +246,8 @@ def cli(argv=None) -> dict:
     from midi_vae_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
     from midi_vae_tpu_torch.io.logging import MetricLogger, generate_id
     from midi_vae_tpu_torch.models.prior import prior_nll
+    from midi_vae_tpu_torch.parallel.collectives import barrier, psum_mean_
+    from midi_vae_tpu_torch.parallel.mesh import make_mesh, replicate
 
     dev = resolve_device("cpu" if args.cpu else "cuda")
     model, cfg, image_size, _, ckpt_dataset = _load_model_and_state(args.checkpoint, device=dev)
@@ -348,7 +358,16 @@ def cli(argv=None) -> dict:
         start_epoch, total_step = int(resume.get("epoch", 0)), int(resume.get("total_step", 0))
 
     n = len(grids)
+    mesh = make_mesh(n_dev) if dist.is_initialized() else None
+    if n < n_dev:
+        raise SystemExit(f"corpus has {n} grids but the mesh has {n_dev} devices; reduce --num-devices")
     bs = min(args.batch_size, n)
+    bs = max(n_dev, bs - bs % n_dev)  # global batch divisible by the mesh
+    rows_dev = None
+    if mesh is not None:
+        replicate(prior)  # rank 0's weights on every rank
+        rows_dev = torch.from_numpy(mesh.local_rows(bs)).to(dev)
+        print(f"data-parallel prior training over {n_dev} devices (global batch {bs})")
     grids_dev = torch.from_numpy(grids).long().to(dev)
     labels_dev = torch.from_numpy(labels).long().to(dev) if num_classes else None
 
@@ -371,14 +390,20 @@ def cli(argv=None) -> dict:
     def save(epoch, nll, test_nll=None):
         save_checkpoint(out, {"params": prior.state_dict(), "opt_state": optimizer.state_dict()},
                         config=prior_config(float(nll), test_nll), epoch=epoch, total_step=total_step)
+        barrier()  # rank 0 wrote (save_checkpoint writes on rank 0 only)
 
     def train_step(sel):
+        if rows_dev is not None:
+            sel = sel[rows_dev]  # this rank's rows of the global batch
         idx = grids_dev[sel]
         optimizer.zero_grad(set_to_none=True)
         nll = prior_nll(prior, idx, labels_dev[sel] if num_classes else None)
         nll.backward()
+        nll = nll.detach().float().reshape(1)
+        if mesh is not None:
+            psum_mean_([p.grad for p in prior.parameters() if p.grad is not None] + [nll], mesh.data_group)
         optimizer.step()
-        return nll.detach()
+        return nll[0]
 
     steps = max(n // bs, 1)
     nll = float(resume["config"].get("final_nll", float("nan"))) if resume else float("nan")
@@ -427,6 +452,11 @@ def cli(argv=None) -> dict:
     print(f"saved prior to {out}")
     return {"out": out, "history": history, "test_nll": test_nll, "total_step": total_step, "corpus": n,
             "batch_size": bs, "timings": timings}
+
+
+def prior_rank(rank: int, device, argv) -> dict:
+    """One rank of a ``--num-devices`` run (``parallel/launch.py``)."""
+    return cli(argv)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ Two kinds of randomness, both stable under a resume at any epoch:
   the counterpart of ``epoch_key``; each step's reparameterization seed is
   :func:`derive_step_seed` of (epoch seed, step), so a resumed run
   replays the draws of an uninterrupted one. The loaders key a batch's
-  random transforms the same way from :func:`host_epoch_seed`.
+  random transforms the same way from :func:`host_epoch_seed`. A rank of a
+  data-parallel run draws its rows of the global draw (the models'
+  ``rows=``), or under the explicit step its own :func:`derive_shard_seed`.
 
 Discrete draws (:func:`categorical`) take an explicit ``torch.Generator``.
 """
@@ -46,6 +48,22 @@ def derive_micro_seed(step_seed: int, micro: int) -> int:
     2**31): the counterpart of ``fold_in(step_key, micro)``, hashed as
     :func:`derive_step_seed` hashes a step into its epoch."""
     return derive_step_seed(step_seed, micro)
+
+
+def derive_shard_seed(step_seed: int, coords) -> int:
+    """The seed of one shard of an explicit data-parallel step, in [0,
+    2**31): ``step_seed`` with each of the rank's mesh coordinates folded
+    in, axis by axis (slice index, then data index), as the JAX package's
+    ``shard_map`` step folds ``axis_index`` of each mesh axis into its key.
+    The shard at the origin keeps ``step_seed``, so over one device the
+    explicit step draws what the one-device step draws."""
+    coords = [int(c) for c in coords]
+    if not any(coords):
+        return int(step_seed)
+    seed = int(step_seed)
+    for c in coords:
+        seed = derive_step_seed(seed, c)
+    return seed
 
 
 def host_epoch_seed(seed: int, epoch: int, process_index: int = 0) -> int:

@@ -30,7 +30,10 @@
 // - The host path is one ctypes call into a plain C function per launch.
 //
 // The draw is Philox-4x32-10 (Salmon et al., SC'11) with counter
-// (flat index, 0, 0, 0) and key (seed, 0); words 0 and 1 map to eps as the
+// (offset + flat index, 0, 0, 0) and key (seed, 0). The offset lets a rank
+// of a data-parallel step draw its rows of the global batch's noise: rows
+// [r*b, (r+1)*b) of a [N*b, D] draw start at offset r*b*D, and the wrapper
+// keeps offset + n below 2**32. Words 0 and 1 map to eps as the
 // TPU kernel maps its on-core bits. `k3_eps_plain` in ops/fused_elbo.py is
 // the same draw in PyTorch. z and the gradients are rounded step by step as
 // the plain PyTorch versions round them (__fmul_rn / __fadd_rn: no fused
@@ -102,7 +105,8 @@ __device__ __forceinline__ float k3_eps(uint32_t i, uint32_t seed) {
 
 __global__ void __cluster_dims__(kClusterCtas, 1, 1) __launch_bounds__(kFwdThreads)
     k3_reparam_kl_fwd_kernel(const void* __restrict__ mu, int mu_dtype, const void* __restrict__ lv, int lv_dtype,
-                             void* __restrict__ z, float* __restrict__ kl, int64_t n, uint32_t seed, float inv_b) {
+                             void* __restrict__ z, float* __restrict__ kl, int64_t n, uint32_t seed, uint32_t offset,
+                             float inv_b) {
     __shared__ double warp_sums[kFwdThreads / 32];
     __shared__ double cta_sum;
     cg::cluster_group cluster = cg::this_cluster();
@@ -127,7 +131,7 @@ __global__ void __cluster_dims__(kClusterCtas, 1, 1) __launch_bounds__(kFwdThrea
         for (int u = 0; u < kUnroll; ++u) {
             const int64_t i = base + u * stride;
             if (i < n) {
-                const float eps = k3_eps(static_cast<uint32_t>(i), seed);
+                const float eps = k3_eps(static_cast<uint32_t>(i) + offset, seed);
                 store_f(z, mu_dtype, i, __fadd_rn(m[u], __fmul_rn(eps, expf(__fmul_rn(0.5f, v[u])))));
                 acc += static_cast<double>(
                     __fsub_rn(__fsub_rn(__fadd_rn(1.0f, v[u]), __fmul_rn(m[u], m[u])), expf(v[u])));
@@ -195,10 +199,11 @@ int use_device(int device) {
 // the given stream, does not synchronise, and returns cudaGetLastError().
 
 extern "C" int k3_reparam_kl_fwd(const void* mu, int mu_dtype, const void* lv, int lv_dtype, void* z, void* kl,
-                                 long long n, unsigned int seed, float inv_b, int device, void* stream) {
+                                 long long n, unsigned int seed, unsigned int offset, float inv_b, int device,
+                                 void* stream) {
     if (const int err = use_device(device)) return err;
     k3_reparam_kl_fwd_kernel<<<kClusterCtas, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        mu, mu_dtype, lv, lv_dtype, z, static_cast<float*>(kl), n, seed, inv_b);
+        mu, mu_dtype, lv, lv_dtype, z, static_cast<float*>(kl), n, seed, offset, inv_b);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,6 +25,14 @@ for eval with the final batch zero-padded and ``mask`` 0 on its pad rows.
 A train batch's random transforms are keyed by
 ``derive_step_seed(host_epoch_seed(seed, epoch), batch_idx)``.
 
+On a rank of a data-parallel run (``rows``: the positions of its rows in
+each global batch, ``Mesh.local_rows``) every rank walks the same order
+and builds only its rows of each global batch; the eval batch is padded
+as a global batch and masked by global position, and the random
+transforms draw over the global batch and keep the rows' draws, so N
+ranks see the batches of one rank at N times the batch size.
+``batch_size`` stays the global batch.
+
 ``make_loader``'s ``placement``: ``host``; ``device``; ``auto`` =
 device-resident while the resident corpora fit
 ``MIDI_VAE_DEVICE_DATA_BUDGET_MB`` (default 2048), else host. On a CPU
@@ -60,10 +68,19 @@ def transform_seed(seed: int, epoch: int, batch_idx: int) -> int:
     return derive_step_seed(host_epoch_seed(seed, epoch), batch_idx)
 
 
-def _finish(spec, x: torch.Tensor, seed: Optional[int]) -> torch.Tensor:
+def _finish(spec, x: torch.Tensor, seed: Optional[int], rows=None) -> torch.Tensor:
     if spec is not None:
-        return apply_transform(spec, x, seed)
+        return apply_transform(spec, x, seed, rows=rows)
     return x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+
+
+def _rank_rows(batch_size: int, rows: Optional[np.ndarray]):
+    """(rows as int64, local batch size, transform rows) of a rank's share
+    of each global batch; ``rows`` None is the whole batch."""
+    if rows is None:
+        return None, batch_size, None
+    rows = np.asarray(rows, np.int64)
+    return rows, len(rows), (torch.from_numpy(rows), batch_size)
 
 
 def _num_batches(n: int, batch_size: int, train: bool) -> int:
@@ -79,7 +96,8 @@ class DeviceLoader:
     """Host-fed loader (see the module docstring): ``dataset`` is an
     :class:`ArrayDataset` with its transform attached; ``batch_size`` the
     global batch; ``train`` shuffles and drops the last partial batch, eval
-    keeps order and pads it."""
+    keeps order and pads it. ``rows``: this rank's positions in each
+    global batch (None: all of them)."""
 
     def __init__(
         self,
@@ -90,6 +108,7 @@ class DeviceLoader:
         seed: int = 0,
         device: DeviceLike = "cuda",
         prefetch: int = 2,
+        rows: Optional[np.ndarray] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -98,6 +117,7 @@ class DeviceLoader:
         self.device = resolve_device(device)
         self.prefetch = max(1, prefetch)
         self.num_batches = _num_batches(len(dataset), batch_size, train)
+        self.rows, self.local_batch_size, self._transform_rows = _rank_rows(batch_size, rows)
 
     def __len__(self) -> int:
         return self.num_batches
@@ -114,10 +134,13 @@ class DeviceLoader:
         return np.arange(n)
 
     def _host_batch(self, indices: np.ndarray, pin: bool):
-        """(images, labels, mask) of one batch as CPU tensors, the images
-        gathered into a (pinned) buffer of the full batch size, pad rows zero."""
+        """(images, labels, mask) of this rank's rows of one global batch
+        (``indices``, padded as a global batch) as CPU tensors, the images
+        gathered into a (pinned) buffer of the local batch size, pad rows zero."""
         images = self.dataset.images
-        B, k = self.batch_size, len(indices)
+        if self.rows is not None:
+            indices = indices[self.rows[self.rows < len(indices)]]  # pad rows come last, as globally
+        B, k = self.local_batch_size, len(indices)
         buf = torch.empty((B, *images.shape[1:]), dtype=torch.uint8, pin_memory=pin)
         np.take(images, indices, axis=0, out=buf.numpy()[:k])
         if k < B:
@@ -153,7 +176,7 @@ class DeviceLoader:
                 for t in (x, y, m):
                     t.record_stream(stream)
             seed = transform_seed(self.seed, epoch, i) if self.train else None
-            return Batch(x=_finish(spec, x, seed), y=y, mask=m)
+            return Batch(x=_finish(spec, x, seed, self._transform_rows), y=y, mask=m)
 
         queue: collections.deque = collections.deque()
         consumed = 0
@@ -179,6 +202,7 @@ class DeviceResidentLoader:
         train: bool,
         seed: int = 0,
         device: DeviceLike = "cuda",
+        rows: Optional[np.ndarray] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -186,6 +210,7 @@ class DeviceResidentLoader:
         self.seed = seed
         self.device = resolve_device(device)
         self.num_batches = _num_batches(len(dataset), batch_size, train)
+        self.rows, self.local_batch_size, self._transform_rows = _rank_rows(batch_size, rows)
         # the one corpus upload, as uint8
         self._images = torch.from_numpy(np.ascontiguousarray(dataset.images)).to(self.device)
         self._labels = torch.from_numpy(np.asarray(dataset.labels, np.int64)).to(self.device)
@@ -207,7 +232,8 @@ class DeviceResidentLoader:
         return self.num_batches * self.batch_size if self.train else len(self.dataset)
 
     def _epoch_planes(self, epoch: int):
-        """The epoch's [num_batches, B] order and mask planes, on the device."""
+        """The epoch's [num_batches, B] order and mask planes (B the local
+        batch: this rank's columns of the global planes), on the device."""
         n, B, nb = len(self.dataset), self.batch_size, self.num_batches
         if self.train:
             order = host_rng(self.seed, epoch).permutation(n)[: nb * B]
@@ -215,8 +241,11 @@ class DeviceResidentLoader:
         else:
             order = np.concatenate([np.arange(n), np.zeros(nb * B - n, np.int64)])
             masks = (np.arange(nb * B) < n).astype(np.float32)
-        order_dev = torch.from_numpy(order.reshape(nb, B).astype(np.int64)).to(self.device)
-        masks_dev = torch.from_numpy(masks.reshape(nb, B)).to(self.device)
+        order, masks = order.reshape(nb, B), masks.reshape(nb, B)
+        if self.rows is not None:
+            order, masks = order[:, self.rows], masks[:, self.rows]
+        order_dev = torch.from_numpy(np.ascontiguousarray(order, np.int64)).to(self.device)
+        masks_dev = torch.from_numpy(np.ascontiguousarray(masks)).to(self.device)
         return order_dev, masks_dev
 
     def epoch(self, epoch: int = 1) -> Iterator[Batch]:
@@ -231,7 +260,7 @@ class DeviceResidentLoader:
             rows = torch.where(real.reshape(-1, *([1] * (self._images.ndim - 1))), self._images[idx], 0)
             y = torch.where(real, self._labels[idx], 0)
             seed = transform_seed(self.seed, epoch, i) if self.train else None
-            yield Batch(x=_finish(spec, rows, seed), y=y, mask=mask)
+            yield Batch(x=_finish(spec, rows, seed, self._transform_rows), y=y, mask=mask)
 
 
 def _device_data_budget() -> int:
@@ -255,11 +284,13 @@ def make_loader(
     device: DeviceLike = "cuda",
     prefetch: int = 2,
     placement: str = "host",
+    rows: Optional[np.ndarray] = None,
 ):
-    """The loader for ``placement`` (``host`` | ``device`` | ``auto``)."""
+    """The loader for ``placement`` (``host`` | ``device`` | ``auto``);
+    ``rows`` are this rank's positions in each global batch."""
     if placement not in ("host", "device", "auto"):
         raise ValueError(f"unknown placement: {placement!r} (host|device|auto)")
-    kw = dict(train=train, seed=seed, device=device)
+    kw = dict(train=train, seed=seed, device=device, rows=rows)
     if placement == "device":
         return DeviceResidentLoader(dataset, batch_size, **kw)
     if placement == "auto":

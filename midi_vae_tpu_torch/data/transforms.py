@@ -102,13 +102,24 @@ def _center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
     return x[:, top : top + size, left : left + size, :]
 
 
-def _random_crop(x: torch.Tensor, size: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+def per_sample_draw(draw, b: int, rows=None) -> torch.Tensor:
+    """``draw(shape)`` of one value per sample of a batch of ``b``; with
+    ``rows`` = (positions, global batch), the draw over the global batch at
+    those positions (a rank's rows of a data-parallel batch)."""
+    if rows is None:
+        return draw((b,))
+    positions, total = rows
+    out = draw((total,))
+    return out[positions.to(out.device)]
+
+
+def _random_crop(x: torch.Tensor, size: int, generator: Optional[torch.Generator], rows=None) -> torch.Tensor:
     """Per-sample random square crop (torchvision RandomCrop semantics)."""
     b, h, w, _ = x.shape
     if h == size and w == size:
         return x
-    tops = torch.randint(0, h - size + 1, (b,), generator=generator, device=x.device)
-    lefts = torch.randint(0, w - size + 1, (b,), generator=generator, device=x.device)
+    tops = per_sample_draw(lambda s: torch.randint(0, h - size + 1, s, generator=generator, device=x.device), b, rows)
+    lefts = per_sample_draw(lambda s: torch.randint(0, w - size + 1, s, generator=generator, device=x.device), b, rows)
     rows = (tops[:, None] + torch.arange(size, device=x.device)[None, :])[:, :, None]  # [b, size, 1]
     cols = (lefts[:, None] + torch.arange(size, device=x.device)[None, :])[:, None, :]  # [b, 1, size]
     return x[torch.arange(b, device=x.device)[:, None, None], rows, cols]
@@ -122,13 +133,15 @@ def _per_channel(values, x: torch.Tensor):
     return torch.tensor(values, dtype=x.dtype, device=x.device).reshape(1, 1, 1, -1)
 
 
-def apply_transform(spec: TransformSpec, batch: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+def apply_transform(spec: TransformSpec, batch: torch.Tensor, seed: Optional[int] = None, rows=None) -> torch.Tensor:
     """Apply a transform stack to a uint8/float NHWC batch on its device.
 
     uint8 is scaled to [0, 1]; float input is taken as already in [0, 1].
     ``seed`` keys the stack's random parts (augmentation, random crop)
     through a ``torch.Generator`` on the batch's device; ``None`` runs the
     deterministic parts only, as the JAX package does without a key.
+    ``rows`` = (positions, global batch) draws them over a global batch and
+    keeps this batch's positions (:func:`per_sample_draw`).
     """
     # uint8 → [0, 1] as the JAX package's compiled stack computes it: a
     # multiply by the f32 reciprocal of 255, fused with the normalisation
@@ -143,11 +156,11 @@ def apply_transform(spec: TransformSpec, batch: torch.Tensor, seed: Optional[int
 
         x = augment_pianoroll_batch(
             x.float(), generator=gen, max_pitch_shift=spec.max_pitch_shift,
-            max_time_shift=spec.max_time_shift, velocity_scale=spec.velocity_scale,
+            max_time_shift=spec.max_time_shift, velocity_scale=spec.velocity_scale, rows=rows,
         )
     x = _resize_shortest(x, spec.image_size)
     if spec.random_crop and gen is not None:
-        x = _random_crop(x, spec.image_size, gen)
+        x = _random_crop(x, spec.image_size, gen, rows)
     else:
         x = _center_crop(x, spec.image_size)
     x = ((x - _per_channel(spec.mean, x)) / _per_channel(spec.std, x)).float()

@@ -19,6 +19,11 @@ too); batch ``i`` of a sweep draws with ``derive_step_seed(seed, i)``, or
 takes an injected ``eps``. A conditional model evaluates under the batch
 labels (q(z|x, y)). With ``collect_latents`` the sweep also returns
 each real sample's z (``latents`` [N, D], copied to the host per batch).
+
+On a rank of a data-parallel run (``mesh``, and a loader of its rows) the
+forward draws its rows of the global batch's noise, and the sums, minima
+and maxima are reduced over the data group before the host reads them,
+so every rank returns the one-rank sweep's metrics.
 """
 
 from __future__ import annotations
@@ -28,9 +33,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from midi_vae_tpu_torch.core.rng import derive_step_seed
 from midi_vae_tpu_torch.losses.elbo import bce_from_logits, denormalized_targets
 from midi_vae_tpu_torch.models.vae import label_kwarg
+from midi_vae_tpu_torch.parallel.collectives import all_reduce_
 
 _SUM = (
     "bce_sum", "bce_raw_sum", "mse_sum", "mae_sum", "n_elem", "n_samples",
@@ -41,8 +49,9 @@ _MAX = ("stim_max", "recon_max")
 
 
 def make_eval_step(model, collect_latents: bool = False, target_denorm=None, occupancy_denorm=None) -> Callable:
-    """Build ``eval_step(x, mask, seed, *, y=None, params=None, eps=None) →
-    dict of device tensors``; ``y`` reaches conditional models only.
+    """Build ``eval_step(x, mask, seed, *, y=None, params=None, eps=None,
+    rows=None) → dict of device tensors``; ``y`` reaches conditional models
+    only, ``rows`` the model's reparameterization.
 
     ``params`` replaces the model's parameters for this call (name →
     tensor, e.g. the EMA averages; BatchNorm statistics stay the model's).
@@ -54,8 +63,8 @@ def make_eval_step(model, collect_latents: bool = False, target_denorm=None, occ
     """
 
     @torch.no_grad()
-    def eval_step(x, mask, seed: int, *, y=None, params=None, eps=None) -> Dict[str, torch.Tensor]:
-        kwargs = dict(train=False, seed=seed, eps=eps, **label_kwarg(model, y))
+    def eval_step(x, mask, seed: int, *, y=None, params=None, eps=None, rows=None) -> Dict[str, torch.Tensor]:
+        kwargs = dict(train=False, seed=seed, eps=eps, rows=rows, **label_kwarg(model, y))
         if params is None:
             out = model(x, **kwargs)
         else:
@@ -111,12 +120,16 @@ def evaluate(
     verbosity: int = 1,
     collect_latents: bool = False,
     eval_step: Optional[Callable] = None,
+    mesh=None,
 ) -> Dict[str, float]:
     """Full-dataset metric sweep over ``loader.epoch(1)``; ``params``
     replaces the model's parameters (the EMA averages). Returns the metrics
     named in the module docstring and ``count``, and with
     ``collect_latents`` ``latents`` (a passed ``eval_step`` that does not
-    collect them is rebuilt with its target options)."""
+    collect them is rebuilt with its target options). ``mesh``: this rank's
+    mesh, for a loader of its rows (see the module docstring)."""
+    if collect_latents and mesh is not None:
+        raise ValueError("collect_latents gathers one rank's latents only; sweep on one rank")
     if collect_latents and not getattr(eval_step, "collect_latents", False):
         step_fn = make_eval_step(
             model, collect_latents=True,
@@ -128,7 +141,10 @@ def evaluate(
     acc = None
     latents = []
     for i, batch in enumerate(loader.epoch(1)):
-        res = step_fn(batch.x, batch.mask, derive_step_seed(seed, i), y=batch.y, params=params)
+        # a rank draws its block of the global batch's noise (Mesh.local_rows)
+        b = batch.x.shape[0]
+        rows = None if mesh is None else (mesh.shard_index * b, mesh.num_shards * b)
+        res = step_fn(batch.x, batch.mask, derive_step_seed(seed, i), y=batch.y, params=params, rows=rows)
         z = res.pop("latents", None)
         if collect_latents:
             latents.append(z[batch.mask > 0].float().cpu().numpy())
@@ -144,6 +160,11 @@ def evaluate(
             acc[k] = torch.maximum(acc[k], res[k])
     if acc is None:
         raise ValueError("empty evaluation stream")
+    if mesh is not None:
+        group = mesh.data_group
+        all_reduce_([acc[k] for k in _SUM if k in acc], group)
+        all_reduce_([acc[k] for k in _MIN], group, dist.ReduceOp.MIN)
+        all_reduce_([acc[k] for k in _MAX], group, dist.ReduceOp.MAX)
     totals = {k: v.double().cpu().numpy() for k, v in acc.items()}  # the sweep's one host read
 
     if verbosity >= 1:

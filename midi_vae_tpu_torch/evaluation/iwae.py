@@ -16,6 +16,10 @@ whatever K. Draw j of batch i is keyed by (seed, i, j) alone
 the JAX package, so any chunking reduces the same draws. A conditional
 model encodes under the batch labels and decodes each draw under its
 sample's label (the bound is on p(x|y)).
+
+On a rank of a data-parallel run (``mesh``, and a loader of its rows) a
+batch's draws are the global batch's at this rank's rows, and the sums
+are reduced over the data group: every rank returns the one-rank bound.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from midi_vae_tpu_torch.core.rng import derive_step_seed
 from midi_vae_tpu_torch.evaluation.inference import normal_draw
 from midi_vae_tpu_torch.losses.elbo import bce_from_logits, denormalized_targets
 from midi_vae_tpu_torch.models.vae import label_kwarg
+from midi_vae_tpu_torch.parallel.collectives import all_reduce_
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -47,16 +52,21 @@ def make_iwae_step(model, chunk: int, target_denorm: Optional[Tuple] = None) -> 
     the per-sample log-sum-exp of ``chunk`` importance weights, unnormalised
     (the sweep divides by the total K once, so chunks compose exactly).
     ``y`` reaches conditional models only; ``eps`` [chunk, B, D] replaces
-    the draws."""
+    the draws; ``rows`` = (positions, global batch) takes those positions
+    of the global batch's draws."""
 
     @torch.inference_mode()
-    def iwae_step(x: torch.Tensor, batch_seed: int, offset: int, *, y=None, eps: Optional[torch.Tensor] = None):
+    def iwae_step(x: torch.Tensor, batch_seed: int, offset: int, *, y=None, eps: Optional[torch.Tensor] = None,
+                  rows=None):
         enc = model.encode(x, train=False, **label_kwarg(model, y))
         mu = enc.mu.float()
         log_var = enc.log_var.float()
         b, d = mu.shape
-        if eps is None:
+        if eps is None and rows is None:
             eps = iwae_draws(batch_seed, offset, chunk, b, d, mu.device)
+        elif eps is None:  # this rank's rows of the global batch's draws
+            positions, total = rows
+            eps = iwae_draws(batch_seed, offset, chunk, total, d, mu.device)[:, positions.to(mu.device)]
         eps = eps.to(mu.device, torch.float32)
         z = mu[None] + eps * torch.exp(0.5 * log_var)[None]
 
@@ -82,10 +92,12 @@ def iwae_bound(
     chunk: int = 16,
     seed: int = 0,
     target_denorm: Optional[Tuple] = None,
+    mesh=None,
 ) -> float:
     """Dataset-mean IWAE bound in nats per sample (higher is better) over
     ``loader.epoch(1)``; padding rows (mask 0) are dropped on the device,
-    and each batch's masked sum is read to the host once."""
+    and each batch's masked sum is read to the host once. ``mesh``: this
+    rank's mesh, for a loader of its rows."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if getattr(model, "latent_kind", "gaussian") == "vq":
@@ -99,6 +111,9 @@ def iwae_bound(
     sizes = [chunk] * n_chunks + ([rem] if rem else [])
     steps = {size: make_iwae_step(model, size, target_denorm) for size in set(sizes)}
 
+    rows = getattr(loader, "rows", None)
+    if rows is not None:
+        rows = (torch.from_numpy(rows), loader.batch_size)
     total = 0.0
     count = 0
     for i, batch in enumerate(loader.epoch(1)):
@@ -106,12 +121,16 @@ def iwae_bound(
         lse = None
         offset = 0
         for size in sizes:
-            part = steps[size](batch.x, batch_seed, offset, y=batch.y)
+            part = steps[size](batch.x, batch_seed, offset, y=batch.y, rows=rows)
             offset += size
             lse = part if lse is None else torch.logaddexp(lse, part)
         mask = batch.mask > 0
         total += float(torch.where(mask, lse - math.log(k), 0.0).sum())
         count += int(mask.sum())
+    if mesh is not None:
+        sums = torch.tensor([total, count], dtype=torch.float64, device=batch.x.device)
+        all_reduce_([sums], mesh.data_group)
+        total, count = float(sums[0]), int(sums[1])
     if count == 0:
         raise ValueError("empty evaluation stream")
     return total / count

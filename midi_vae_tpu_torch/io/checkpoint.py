@@ -23,6 +23,8 @@ from typing import Any, Dict, Iterable, Optional
 
 import torch
 
+from midi_vae_tpu_torch.parallel.mesh import is_leader
+
 CHECKPOINT_LATEST = "checkpoint_latest.pt"
 BEST_MODEL = "best_model.pt"
 
@@ -52,7 +54,10 @@ def save_checkpoint(
 ) -> None:
     """Write a checkpoint atomically; ``state`` is a state dict of plain
     tensors (``train.state.state_dict``), copied to the CPU here unless it
-    already is."""
+    already is. Rank 0 of a data-parallel run writes; the other ranks
+    return at once."""
+    if not is_leader():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(checkpoint_path)), exist_ok=True)
     payload = {
         "state": _to_cpu(state),
@@ -116,9 +121,13 @@ class AsyncCheckpointWriter:
 
 
 def copy_best(checkpoint_path: str, best_path: Optional[str] = None) -> str:
-    """Copy the latest checkpoint to the best-model file (temp file, then replace)."""
+    """Copy the latest checkpoint to the best-model file (temp file, then
+    replace); rank 0 of a data-parallel run copies, the others only return
+    the path."""
     if best_path is None:
         best_path = os.path.join(os.path.dirname(checkpoint_path), BEST_MODEL)
+    if not is_leader():
+        return best_path
     shutil.copyfile(checkpoint_path, best_path + ".tmp")
     os.replace(best_path + ".tmp", best_path)
     return best_path

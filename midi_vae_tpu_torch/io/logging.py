@@ -21,6 +21,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from midi_vae_tpu_torch.parallel.mesh import is_leader
+
 
 def generate_id(length: int = 8) -> str:
     """Random base-36 run id."""
@@ -56,7 +58,9 @@ EXCLUDED_WANDB_CONFIG_KEYS = frozenset(
 
 
 class MetricLogger:
-    """JSONL file (``output_dir/metrics.jsonl``) + optional wandb."""
+    """JSONL file (``output_dir/metrics.jsonl``) + optional wandb. Only rank
+    0 of the process group writes: the other ranks of a data-parallel run
+    keep no file and no run."""
 
     def __init__(
         self,
@@ -70,9 +74,12 @@ class MetricLogger:
         config: Optional[Dict[str, Any]] = None,
         tags=(),
     ):
-        self.output_dir = output_dir
+        leader = is_leader()
+        self.output_dir = output_dir if leader else None
         self._jsonl = None
         self._wandb = None
+        if not leader:
+            return
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
             self._jsonl = open(os.path.join(output_dir, "metrics.jsonl"), "a", buffering=1)

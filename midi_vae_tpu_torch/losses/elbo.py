@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from midi_vae_tpu_torch.core.types import LossOutput, ModelOutput
+from midi_vae_tpu_torch.parallel.collectives import CrossRank, all_reduce_sum, group_size
 
 _LOG_CLAMP = -100.0  # torch binary_cross_entropy clamps log terms at -100
 
@@ -43,12 +44,19 @@ def kl_gaussian(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
     return -0.5 * torch.mean(torch.sum(1.0 + log_var - mu**2 - torch.exp(log_var), dim=-1))
 
 
-def kl_gaussian_free_bits(mu: torch.Tensor, log_var: torch.Tensor, free_bits: float) -> torch.Tensor:
+def kl_gaussian_free_bits(
+    mu: torch.Tensor, log_var: torch.Tensor, free_bits: float, group: Optional[CrossRank] = None
+) -> torch.Tensor:
     """Free-bits KL (Kingma et al. 2016): per-dimension batch-mean KL floored
     at ``free_bits`` nats, summed over dimensions, in f32. Dimensions under
-    the floor add a constant and get no gradient."""
+    the floor add a constant and get no gradient. With ``group``, the batch
+    is this rank's rows of one spread over the group's ranks in equal
+    shards: the per-dimension means are taken over all of it (one
+    differentiable all-reduce) before the floor."""
     mu, log_var = mu.float(), log_var.float()
     kl_dim = -0.5 * torch.mean(1.0 + log_var - mu**2 - torch.exp(log_var), dim=0)
+    if group is not None:
+        kl_dim = all_reduce_sum(kl_dim, group.group) / group_size(group.group)
     return torch.sum(torch.clamp_min(kl_dim, free_bits))
 
 
@@ -72,13 +80,15 @@ def elbo_loss(
     free_bits: Optional[float] = None,
     pos_weight: Optional[float] = None,
     target_denorm=None,
+    free_bits_group: Optional[CrossRank] = None,
 ) -> LossOutput:
     """VAE loss on the unfused path (reference: ``VanillaVAE.loss``).
 
     ``kld_weight`` is a host float (the schedules' output).
     ``log_var_clamp`` clips log_var before the KL. ``free_bits`` floors
-    the optimised KL term per dimension (:func:`kl_gaussian_free_bits`);
-    the reported ``kl`` stays the true KL. ``target_denorm`` takes the
+    the optimised KL term per dimension (:func:`kl_gaussian_free_bits`,
+    over ``free_bits_group``'s global batch when given); the reported
+    ``kl`` stays the true KL. ``target_denorm`` takes the
     BCE against the de-normalised targets (:func:`denormalized_targets`).
     """
     targets = output.input
@@ -89,7 +99,9 @@ def elbo_loss(
     if log_var_clamp is not None:
         log_var = log_var.clamp(log_var_clamp[0], log_var_clamp[1])
     kl = kl_gaussian(output.encoded.mu, log_var)
-    kl_term = kl if free_bits is None else kl_gaussian_free_bits(output.encoded.mu, log_var, free_bits)
+    kl_term = kl if free_bits is None else kl_gaussian_free_bits(
+        output.encoded.mu, log_var, free_bits, free_bits_group
+    )
     loss = loss_recon + kld_weight * kl_term
     return LossOutput(
         loss=loss,

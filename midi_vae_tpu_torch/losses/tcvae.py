@@ -10,8 +10,12 @@ whole KL block.
 
 Everything after the forward runs in f32, whatever the model's compute
 dtype. The estimator spans the batch it is given: under gradient
-accumulation that is the micro-batch, as in the JAX package. The global
-gather of a data-parallel run is not ported (ROADMAP Queue 1 item 16).
+accumulation that is the micro-batch, as in the JAX package. On a rank of
+a data-parallel step, ``gather`` gathers ``(z, mu, log_var)`` over
+the group's ranks first, so the [B, B, D] density matrix spans the global
+batch; every rank then computes the same KL block, the reconstruction
+stays local, and the gather's backward (the sum over ranks, then this
+rank's rows) hands each rank the gradient of its own latents.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from midi_vae_tpu_torch.core.types import LossOutput, ModelOutput
 from midi_vae_tpu_torch.losses.elbo import bce_from_logits, denormalized_targets
+from midi_vae_tpu_torch.parallel.collectives import CrossRank, concat_all_gather
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -65,13 +70,17 @@ def beta_tc_elbo_loss(
     log_var_clamp: Optional[Tuple[float, float]] = None,
     pos_weight: Optional[float] = None,
     target_denorm=None,
+    gather: Optional[CrossRank] = None,
 ) -> LossOutput:
     """BCE reconstruction + ``kld_weight``·(MI + β·TC + DWKL), α = γ = 1.
 
     The reported ``kl`` is MI + TC + DWKL and ``kld_loss`` its negation, as
     the ELBO reports them. ``log_var_clamp`` clips log_var first;
     ``pos_weight`` and ``target_denorm`` act on the BCE as in
-    :func:`~midi_vae_tpu_torch.losses.elbo.elbo_loss`.
+    :func:`~midi_vae_tpu_torch.losses.elbo.elbo_loss`. ``gather`` (a
+    :class:`~midi_vae_tpu_torch.parallel.collectives.CrossRank`) gathers
+    the latents over its group's ranks before the decomposition (JAX
+    ``gather_axes``).
     """
     lv = output.encoded.log_var
     if log_var_clamp is not None:
@@ -80,7 +89,10 @@ def beta_tc_elbo_loss(
     if target_denorm is not None:
         targets = denormalized_targets(targets, target_denorm)
     recon = torch.mean(bce_from_logits(output.logits, targets, pos_weight))
-    mi, tc, dwkl = tc_decomposition(output.latents, output.encoded.mu, lv, dataset_size)
+    z, mu = output.latents, output.encoded.mu
+    if gather is not None:
+        z, mu, lv = (concat_all_gather(t, gather.group) for t in (z, mu, lv))
+    mi, tc, dwkl = tc_decomposition(z, mu, lv, dataset_size)
     loss = recon + float(kld_weight) * (mi + tc_beta * tc + dwkl)
     kl_total = (mi + tc + dwkl).detach()
     return LossOutput(

@@ -118,6 +118,7 @@ def augment_pianoroll_batch(
     pitch_shift: Optional[torch.Tensor] = None,
     time_shift: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
+    rows=None,
 ) -> torch.Tensor:
     """Per-sample augmentation of a batch: out[b, p, t] = clip(roll[b, p − dp,
     t − dt]·s, 0, 1), zero where p − dp or t − dt falls off the roll.
@@ -125,18 +126,22 @@ def augment_pianoroll_batch(
     dp ∈ [−max_pitch_shift, max_pitch_shift], dt ∈ [−max_time_shift,
     max_time_shift] and s ∈ [velocity_scale) are drawn per sample from
     ``generator`` unless given as ``pitch_shift``/``time_shift``/``scale``
-    (int, int and float32 tensors of shape [B]).
+    (int, int and float32 tensors of shape [B]). ``rows`` = (positions,
+    global batch) draws over the global batch and keeps those positions
+    (``data.transforms.per_sample_draw``).
     """
+    from midi_vae_tpu_torch.data.transforms import per_sample_draw
+
     B, P, T = rolls.shape[0], rolls.shape[1], rolls.shape[2]
     dev = rolls.device
     kw = dict(generator=generator, device=dev)
     if pitch_shift is None:
-        pitch_shift = torch.randint(-max_pitch_shift, max_pitch_shift + 1, (B,), **kw)
+        pitch_shift = per_sample_draw(lambda s: torch.randint(-max_pitch_shift, max_pitch_shift + 1, s, **kw), B, rows)
     if time_shift is None:
-        time_shift = torch.randint(-max_time_shift, max_time_shift + 1, (B,), **kw)
+        time_shift = per_sample_draw(lambda s: torch.randint(-max_time_shift, max_time_shift + 1, s, **kw), B, rows)
     if scale is None:
         lo, hi = velocity_scale
-        scale = lo + (hi - lo) * torch.rand((B,), dtype=torch.float32, **kw)
+        scale = lo + (hi - lo) * per_sample_draw(lambda s: torch.rand(s, dtype=torch.float32, **kw), B, rows)
     src_p = torch.arange(P, device=dev)[None, :] - pitch_shift.to(dev).long()[:, None]  # [B, P]
     src_t = torch.arange(T, device=dev)[None, :] - time_shift.to(dev).long()[:, None]  # [B, T]
     keep = ((src_p >= 0) & (src_p < P))[:, :, None] & ((src_t >= 0) & (src_t < T))[:, None, :]  # [B, P, T]

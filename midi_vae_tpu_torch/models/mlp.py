@@ -15,7 +15,7 @@ stack stores little).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -106,9 +106,10 @@ class MLPVAE(nn.Module):
         seed: Optional[int] = None,
         eps: Optional[torch.Tensor] = None,
         y: Optional[torch.Tensor] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ) -> ModelOutput:
         """Full forward pass, as VanillaVAE's."""
         encoded = self.encode(x, train, y=y)
-        z = self.reparameterize(encoded.mu, encoded.log_var, seed=seed, eps=eps)
+        z = self.reparameterize(encoded.mu, encoded.log_var, seed=seed, eps=eps, rows=rows)
         logits = self.decode_logits(z, train, y=y)
         return ModelOutput(output=torch.sigmoid(logits), logits=logits, input=x, encoded=encoded, latents=z)

@@ -68,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
 from midi_vae_tpu_torch.ops.fused_elbo import fused_reparam_kl
+from midi_vae_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 
 _LEAKY_SLOPE = 0.01
 
@@ -278,13 +279,30 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
+def cross_rank_means(layer: nn.Module, *means: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``means`` (per-channel f32 batch means) as they are, or, while
+    ``layer.cross_rank`` names a group, their mean over its ranks: one
+    differentiable all-reduce for all of them. The shards of a step are
+    equal, so the mean of the local means is the mean over the global
+    batch (flax's ``pmean`` of mean and E[x²]); over one rank it is the
+    local mean, bit for bit."""
+    if layer.cross_rank is None:
+        return means
+    group = layer.cross_rank.group
+    total = all_reduce_sum(torch.cat(means), group) / group_size(group)
+    return tuple(torch.split(total, [m.numel() for m in means]))
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW channels.
 
     Training: statistics of the batch in f32 (``E[x²] − E[x]²``, clipped at
     0, as flax's fast variance), and the running averages updated in place
     with the biased variance. Eval: the running averages. The output is
-    computed in f32 and cast to ``dtype``.
+    computed in f32 and cast to ``dtype``. Under
+    ``parallel.collectives.cross_rank_statistics`` the statistics span the
+    ranks of its group (:func:`cross_rank_means`), as ``axis_name`` makes
+    flax's span the mesh.
     """
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.float32, momentum: float = 0.9, epsilon: float = 1e-5):
@@ -297,11 +315,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))  # flax batch_stats "mean"
         self.register_buffer("running_var", torch.ones(features))  # flax batch_stats "var"
 
+    cross_rank = None  # set by parallel.collectives.cross_rank_statistics
+
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x32 = x.float()
         if train:
-            mean = x32.mean(dim=(0, 2, 3))
-            var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, ex2 = cross_rank_means(self, x32.mean(dim=(0, 2, 3)), (x32 * x32).mean(dim=(0, 2, 3)))
+            var = (ex2 - mean * mean).clamp_min(0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -339,8 +359,8 @@ class SubsampledBatchNorm(BatchNorm):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if train:
             xs = x[:: self.stride].float()
-            mean = xs.mean(dim=(0, 2, 3))
-            var = (xs * xs).mean(dim=(0, 2, 3)) - mean * mean
+            mean, ex2 = cross_rank_means(self, xs.mean(dim=(0, 2, 3)), (xs * xs).mean(dim=(0, 2, 3)))
+            var = ex2 - mean * mean
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -712,6 +732,7 @@ class VanillaVAE(nn.Module):
         *,
         seed: Optional[int] = None,
         eps: Optional[torch.Tensor] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         """z = mu + eps·exp(log_var/2), eps ~ N(0, I).
 
@@ -720,17 +741,23 @@ class VanillaVAE(nn.Module):
         Otherwise ``seed`` keys the draw: K3's Philox stream with
         ``fused_reparam=True`` (the kernel on the card, its plain version on
         the CPU: the same noise), else a ``torch.Generator`` on mu's device.
+        ``rows`` = (first, total): this batch is rows [first, first + B)
+        of a draw over ``total`` rows (a rank of a data-parallel step
+        draws its rows of the global batch's): K3 at the first row's Philox
+        counter offset, or those rows of the generator's draw. By default
+        the batch is the whole draw.
         """
         if eps is not None:
             return mu + eps.to(mu.dtype) * torch.exp(0.5 * log_var)
         if seed is None:
             raise ValueError("reparameterize needs a seed or an explicit eps")
+        first, total = (0, mu.shape[0]) if rows is None else rows
         if self.fused_reparam:
-            z, _ = fused_reparam_kl(mu, log_var, seed)
+            z, _ = fused_reparam_kl(mu, log_var, seed, first * mu.shape[1])
             return z
         gen = torch.Generator(device=mu.device).manual_seed(int(seed))
-        eps = torch.randn(mu.shape, generator=gen, device=mu.device, dtype=mu.dtype)
-        return mu + eps * torch.exp(0.5 * log_var)
+        eps = torch.randn((total, *mu.shape[1:]), generator=gen, device=mu.device, dtype=mu.dtype)
+        return mu + eps[first : first + mu.shape[0]] * torch.exp(0.5 * log_var)
 
     def forward(
         self,
@@ -740,12 +767,13 @@ class VanillaVAE(nn.Module):
         seed: Optional[int] = None,
         eps: Optional[torch.Tensor] = None,
         y: Optional[torch.Tensor] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ) -> ModelOutput:
         """Full forward pass on NHWC ``x``; see :meth:`reparameterize` for
-        ``seed``/``eps``. ``y`` (int labels [B]) is required by a conditional
-        model."""
+        ``seed``/``eps``/``rows``. ``y`` (int labels [B]) is required by a
+        conditional model."""
         encoded = self.encode(x, train, y=y)
-        z = self.reparameterize(encoded.mu, encoded.log_var, seed=seed, eps=eps)
+        z = self.reparameterize(encoded.mu, encoded.log_var, seed=seed, eps=eps, rows=rows)
         logits = self.decode_logits(z, train, y=y)
         return ModelOutput(output=torch.sigmoid(logits), logits=logits, input=x, encoded=encoded, latents=z)
 

@@ -22,7 +22,10 @@ Semantics kept from the JAX package:
   TF32 setting of the process can lower its precision (TF32 ranks
   near-ties wrongly); ``argmin`` takes the first index on a tie;
 - the EMA counts and sums (``one_hot(idx).T @ z`` in JAX) are a
-  ``bincount`` and an ``index_add_``: the same sums, in another order;
+  ``bincount`` and an ``index_add_``: the same sums, in another order.
+  Under ``parallel.collectives.cross_rank_statistics`` they are summed
+  over the group's ranks before the update, so every rank's codebook
+  takes the global batch's update (JAX ``psum`` over ``bn_axis_name``);
 - Laplace smoothing of the cluster sizes before the codebook division;
 - the straight-through output ``z_e + (z_q − z_e).detach()``.
 
@@ -35,7 +38,7 @@ marginal; the learned prior is ``models/prior.py``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +48,7 @@ from midi_vae_tpu_torch.core.rng import categorical
 from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
 from midi_vae_tpu_torch.models.folded import FoldedVAE
 from midi_vae_tpu_torch.models.vae import Conv, VanillaVAE
+from midi_vae_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 class VectorQuantizerEMA(nn.Module):
@@ -84,11 +88,16 @@ class VectorQuantizerEMA(nn.Module):
         z_st = z_e32 + (z_q.reshape(z_e.shape) - z_e32).detach()
         return z_st, idx.reshape(z_e.shape[:-1])
 
+    cross_rank = None  # set by parallel.collectives.cross_rank_statistics
+
     @torch.no_grad()
     def _ema_update(self, flat: torch.Tensor, idx: torch.Tensor) -> None:
         k = self.num_codes
         counts = torch.bincount(idx, minlength=k).float()
         dw = torch.zeros_like(self.embed_avg).index_add_(0, idx, flat.detach())
+        if self.cross_rank is not None:  # the sums of the whole group's batch, in one all-reduce
+            both = all_reduce_sum(torch.cat([counts[:, None], dw], dim=1), self.cross_rank.group)
+            counts, dw = both[:, 0], both[:, 1:]
         # decay and 1 - decay rounded to f32, as the JAX package computes them
         d = np.float32(self.decay)
         one_minus = float(np.float32(1.0) - d)
@@ -198,11 +207,17 @@ class VQVAE(VanillaVAE):
         return torch.sigmoid(self._decode_from_spatial(self.quantizer.embed(idx), False))
 
     def forward(
-        self, x: torch.Tensor, train: bool = False, *, seed: Optional[int] = None, eps: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        train: bool = False,
+        *,
+        seed: Optional[int] = None,
+        eps: Optional[torch.Tensor] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ) -> ModelOutput:
         """Full forward pass (the EMA update happens here when ``train``).
-        ``seed`` and ``eps`` are accepted for the Gaussian models' signature
-        and unused: the VQ forward draws nothing."""
+        ``seed``, ``eps`` and ``rows`` are accepted for the Gaussian models'
+        signature and unused: the VQ forward draws nothing."""
         z_e, h = self._encode_spatial(x, train)
         z_st, _ = self.quantizer(z_e, train)
         logits = self._decode_from_spatial(z_st, train)

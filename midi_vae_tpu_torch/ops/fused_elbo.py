@@ -39,7 +39,9 @@ What bounds them on the card, and what the design does about it:
   KL; its backward is one elementwise launch; each is reached through one
   ``ctypes`` call (the source's note says more). Its draw is
   Philox-4x32-10 keyed by a seed the caller derives on the host, so no
-  device to host sync is needed, and :func:`k3_eps_plain` is the same draw
+  device to host sync is needed (a counter offset lets a rank of a
+  data-parallel step draw its rows of the global batch's noise), and
+  :func:`k3_eps_plain` is the same draw
   in PyTorch: the CPU and the card give the same noise for the same seed.
 
 Each wrapper (:func:`bce_mean`, :func:`bce_mean_grad`, :func:`reparam_kl`,
@@ -64,7 +66,7 @@ _LOG_CLAMP = -100.0  # torch binary_cross_entropy clamps log terms at -100
 
 _BCE_BLOCK = 4096  # elements per tile of K1/K2
 _BCE_MAX_PROGRAMS = 1024  # K1 programs (and partials); fixed per n, so the sum order is fixed
-_MAX_ELEMENTS = 2**30  # kernel offsets are int32; K3's Philox counter word is the flat index
+_MAX_ELEMENTS = 2**30  # kernel offsets are int32; K3's Philox counter word is offset + the flat index
 
 # Philox-4x32-10 (Salmon et al., SC'11; Random123's philox4x32): multipliers and key increments
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -137,21 +139,23 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def k3_uniforms_plain(shape, seed: int, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+def k3_uniforms_plain(shape, seed: int, device="cpu", offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3's uniforms (u1 in (0, 1], u2 in [0, 1)) for a tensor of ``shape``:
-    Philox words 0 and 1 of counter (flat index, 0, 0, 0) under key (seed, 0),
-    top 24 bits, as midi_vae_tpu/ops/fused_elbo.py:60-63 maps its bits."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    Philox words 0 and 1 of counter (offset + flat index, 0, 0, 0) under key
+    (seed, 0), top 24 bits, as midi_vae_tpu/ops/fused_elbo.py:60-63 maps its
+    bits."""
+    idx = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64, device=device)
     w0, w1, _, _ = philox4x32_10(idx, 0, 0, 0, int(seed), 0)
     u1 = (w0 >> 8).to(torch.float32) * 2.0**-24 + 2.0**-25
     u2 = (w1 >> 8).to(torch.float32) * 2.0**-24
     return u1.reshape(shape), u2.reshape(shape)
 
 
-def k3_eps_plain(shape, seed: int, device="cpu") -> torch.Tensor:
-    """The f32 noise K3 draws for ``shape`` and ``seed`` (Box-Muller, as
-    midi_vae_tpu/ops/fused_elbo.py:64), on any device."""
-    u1, u2 = k3_uniforms_plain(shape, seed, device)
+def k3_eps_plain(shape, seed: int, device="cpu", offset: int = 0) -> torch.Tensor:
+    """The f32 noise K3 draws for ``shape``, ``seed`` and counter ``offset``
+    (Box-Muller, as midi_vae_tpu/ops/fused_elbo.py:64), on any device: rows
+    [r·b, (r+1)·b) of a [N·b, D] draw are ``offset`` = r·b·D."""
+    u1, u2 = k3_uniforms_plain(shape, seed, device, offset)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
 
 
@@ -258,7 +262,9 @@ def _k3_lib() -> ctypes.CDLL:
 
     lib = cuda_lib.library("reparam_kl")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.k3_reparam_kl_fwd.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ctypes.c_longlong, ctypes.c_uint, f32, i32, ptr]
+    lib.k3_reparam_kl_fwd.argtypes = [
+        ptr, i32, ptr, i32, ptr, ptr, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, f32, i32, ptr
+    ]
     lib.k3_reparam_kl_fwd.restype = i32
     lib.k3_reparam_kl_bwd.argtypes = [
         ptr, i32, ptr, i32, ptr, i32, ptr, i32, ptr, ptr, ptr, ctypes.c_longlong, f32, i32, ptr
@@ -355,17 +361,22 @@ def bce_mean_grad(logits: torch.Tensor, targets: torch.Tensor, g: torch.Tensor) 
     return out
 
 
-def reparam_kl(mu: torch.Tensor, log_var: torch.Tensor, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(z, kl) with eps ~ N(0, I) keyed by ``seed``: K3's forward on CUDA, the
-    plain version with :func:`k3_eps_plain`'s draw on CPU — the same noise
-    on both for the same seed."""
+def reparam_kl(
+    mu: torch.Tensor, log_var: torch.Tensor, seed: int, offset: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z, kl) with eps ~ N(0, I) keyed by ``seed`` from Philox counter
+    ``offset`` on: K3's forward on CUDA, the plain version with
+    :func:`k3_eps_plain`'s draw on CPU — the same noise on both for the same
+    seed and offset."""
     if mu.ndim != 2:
         raise ValueError(f"mu must be [B, D], got shape {tuple(mu.shape)}")
-    seed = int(seed)
+    seed, offset = int(seed), int(offset)
     if not 0 <= seed < 2**31:
         raise ValueError(f"seed must be in [0, 2**31), got {seed}")
+    if offset < 0 or offset + mu.numel() > 2**32:
+        raise ValueError(f"offset + elements must stay within the 32-bit counter, got {offset} + {mu.numel()}")
     if not _on_cuda(mu, log_var):
-        return reparam_kl_plain(mu, log_var, k3_eps_plain(mu.shape, seed, mu.device))
+        return reparam_kl_plain(mu, log_var, k3_eps_plain(mu.shape, seed, mu.device, offset))
     _check_kernel_inputs(mu, log_var)
     lib = _k3_lib()
     device = mu.device.index
@@ -373,7 +384,7 @@ def reparam_kl(mu: torch.Tensor, log_var: torch.Tensor, seed: int) -> Tuple[torc
     kl = torch.empty((), dtype=torch.float32, device=mu.device)
     err = lib.k3_reparam_kl_fwd(
         mu.data_ptr(), _DTYPE_CODES[mu.dtype], log_var.data_ptr(), _DTYPE_CODES[log_var.dtype],
-        z.data_ptr(), kl.data_ptr(), mu.numel(), seed, 1.0 / mu.shape[0], device, _current_stream(device),
+        z.data_ptr(), kl.data_ptr(), mu.numel(), seed, offset, 1.0 / mu.shape[0], device, _current_stream(device),
     )
     _raise_on_cuda_error(lib, err, "K3 forward")
     reparam_kl.launches += 1
@@ -434,8 +445,8 @@ def launch_counts() -> dict:
 
 class _FusedReparamKL(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mu, log_var, seed):
-        z, kl = reparam_kl(mu, log_var, seed)
+    def forward(ctx, mu, log_var, seed, offset):
+        z, kl = reparam_kl(mu, log_var, seed, offset)
         ctx.save_for_backward(mu, log_var, z)
         ctx.set_materialize_grads(False)  # the model drops kl: no zero tensor for its gradient
         return z, kl
@@ -446,13 +457,16 @@ class _FusedReparamKL(torch.autograd.Function):
         if g_z is None:  # only kl got a gradient
             g_z = torch.zeros_like(z)
         d_mu, d_lv = reparam_kl_grad(mu, log_var, z, g_z.contiguous(), g_kl)
-        return d_mu, d_lv, None
+        return d_mu, d_lv, None, None
 
 
-def fused_reparam_kl(mu: torch.Tensor, log_var: torch.Tensor, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_reparam_kl(
+    mu: torch.Tensor, log_var: torch.Tensor, seed: int, offset: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(z, kl), z = mu + eps·exp(log_var/2), kl the batch-mean Gaussian KL — K3's
-    forward, and K3's backward (the JAX package's custom VJP) as backward."""
-    return _FusedReparamKL.apply(mu, log_var, seed)
+    forward (eps from Philox counter ``offset`` on), and K3's backward (the
+    JAX package's custom VJP) as backward."""
+    return _FusedReparamKL.apply(mu, log_var, seed, offset)
 
 
 class _FusedBCEMean(torch.autograd.Function):

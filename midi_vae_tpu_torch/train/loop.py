@@ -13,6 +13,18 @@ codes) with every validation and the final test. ``--conditional`` builds
 the Gaussian model over the dataset's classes and passes the batch labels
 to every train, eval and grid forward.
 
+Several devices (``num_devices`` > 1; None is every visible GPU): ``run``
+outside a process group starts one rank per device
+(``parallel/launch.py``) and returns rank 0's results; inside one, it
+builds the mesh (``mesh_slices``: the multi-slice mesh), feeds each rank
+its rows of every global batch (``batch_size_per_device`` × shards),
+trains with the auto step (the one-device step on the global batch) or
+the explicit ``shard_map`` step (``parallel/spmd.py``), reduces the
+evaluation sums over the ranks, and lets rank 0 alone write checkpoints,
+metrics and images, with a barrier after each save. A one-device run with
+``step_impl="shard_map"`` or a mesh option runs its collectives over a
+one-rank group.
+
 Options the port does not have yet raise ``NotImplementedError`` naming
 their ROADMAP item (:func:`check_ported`), before any work is done.
 """
@@ -21,6 +33,7 @@ from __future__ import annotations
 
 import copy
 import os
+import shutil
 import sys
 import time
 import traceback
@@ -29,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from midi_vae_tpu_torch.core.device import DeviceLike, resolve_device
 from midi_vae_tpu_torch.core.rng import epoch_seed as derive_epoch_seed
@@ -54,6 +68,15 @@ from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.registry import VQ_ARCHS, build_model
 from midi_vae_tpu_torch.models.vae import label_kwarg, param_group_label
 from midi_vae_tpu_torch.models.vq import codebook_metrics
+from midi_vae_tpu_torch.parallel.collectives import barrier, broadcast_, broadcast_object
+from midi_vae_tpu_torch.parallel.mesh import (
+    ensure_process_group,
+    is_leader,
+    make_mesh,
+    make_mesh_multislice,
+    replicate,
+    world_size,
+)
 from midi_vae_tpu_torch.train.config import TrainConfig
 from midi_vae_tpu_torch.train.optim import build_optimizer, scale_lr
 from midi_vae_tpu_torch.train.state import (
@@ -70,9 +93,6 @@ def check_ported(config: TrainConfig) -> None:
     gaps = [
         (config.scan_steps != 1, "--scan-steps > 1 (scan-chunked epochs)", 9),
         (config.checkpoint_backend == "orbax", "--checkpoint-backend orbax", 10),
-        ((config.num_devices or 1) != 1, "--num-devices > 1 (multi-GPU data parallelism)", 16),
-        (config.mesh_slices, "--mesh-slices (multi-slice data parallelism)", 16),
-        (config.step_impl != "auto", "--step-impl shard_map", 16),
         (config.compilation_cache, "--compilation-cache", "17e"),
     ]
     for missing, what, item in gaps:
@@ -80,12 +100,121 @@ def check_ported(config: TrainConfig) -> None:
             raise NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 item {item})")
 
 
+def requested_devices(config: TrainConfig, dev: torch.device) -> int:
+    """The devices a run asks for: ``num_devices``, else every visible GPU
+    (one on the CPU), as the JAX package's ``None`` means every device."""
+    if config.num_devices is not None:
+        if config.num_devices < 1:
+            raise ValueError(f"--num-devices must be >= 1, got {config.num_devices}")
+        return config.num_devices
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def build_mesh(config: TrainConfig):
+    """The run's mesh over the ranks of the process group, with the JAX
+    package's shape errors (``train/loop.py:116-137``)."""
+    if config.mesh_slices:
+        if config.num_devices is not None:
+            if config.num_devices % config.mesh_slices:
+                raise ValueError(
+                    f"--num-devices {config.num_devices} does not divide into "
+                    f"--mesh-slices {config.mesh_slices}"
+                )
+            return make_mesh_multislice(config.mesh_slices, config.num_devices // config.mesh_slices)
+        return make_mesh_multislice(config.mesh_slices)
+    return make_mesh(config.num_devices)
+
+
+def build_run_model(config: TrainConfig, dev: torch.device, *, in_channels: int, seed: int, output_bias=None):
+    """The model a run trains, from its resolved config (the conditional
+    class count and the VQ objective already settled)."""
+    return build_model(
+        config.arch,
+        in_channels=in_channels,
+        latent_dim=config.n_features,
+        input_dim=config.image_size,
+        hidden_dims=config.hidden_dims,
+        dtype=torch.bfloat16 if config.dtype == "bfloat16" else torch.float32,
+        fused_reparam=config.fused,
+        stem=config.stem,
+        head=config.head,
+        fold=config.fold,
+        verbose=config.verbose,
+        remat=config.remat,
+        torch_compat=config.torch_compat,
+        output_logit_bias=output_bias,
+        norm=config.norm,
+        num_classes=config.num_classes if config.conditional else 0,
+        codebook_size=config.codebook_size,
+        vq_decay=config.vq_decay,
+        seed=seed,
+        device=dev,
+    )
+
+
+def build_run_optimizer(config: TrainConfig, model, global_batch_size: int, total_steps: int):
+    """The run's optimizer bundle over ``model``."""
+    return build_optimizer(
+        model,
+        param_group_label,
+        optimizer=config.optimizer,
+        lr=scale_lr(config.lr_relative, global_batch_size),
+        lr_encoder_mult=config.lr_encoder_mult,
+        lr_decoder_mult=config.lr_decoder_mult,
+        weight_decay=config.weight_decay,
+        scheduler=config.scheduler,
+        total_steps=total_steps,
+        freeze_encoder=config.freeze_encoder,
+        grad_clip=config.grad_clip or None,
+    )
+
+
+def _with_state(rank0: dict, dev: torch.device) -> dict:
+    """Rank 0's results (``parallel/launch.py`` ``train_rank``) with its
+    train state rebuilt on ``dev`` from the run's final config."""
+    results, config = rank0["results"], TrainConfig.from_dict(rank0["results"]["config"])
+    _, _, img_channels = image_dataset_sizes(config.dataset_name)
+    model = build_run_model(config, dev, in_channels=img_channels, seed=0)
+    n_devices = int(np.prod(results["mesh"]["shape"]))
+    bundle = build_run_optimizer(
+        config, model, config.batch_size_per_device * n_devices, config.epochs * results["steps_per_epoch"]
+    )
+    state = create_train_state(model, bundle, ema=config.ema_decay is not None)
+    results["state"] = load_state_dict(state, rank0["state_dict"])
+    return results
+
+
 def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     """Run a training job on ``device``; returns the results dict (final
-    metrics, counters, the train state, per-epoch history and timings)."""
+    metrics, counters, the train state, the final config, per-epoch
+    history and timings). Outside a process group a run over several
+    devices starts one rank each and returns rank 0's results, its state
+    rebuilt on ``device``: the same dict as a run on one device."""
     t_run_start = time.time()
     dev = resolve_device(device)
     check_ported(config)
+    if not dist.is_initialized():
+        n = requested_devices(config, dev)
+        if config.mesh_slices and n % config.mesh_slices:
+            raise ValueError(f"--num-devices {n} does not divide into --mesh-slices {config.mesh_slices}")
+        if n > 1:
+            from midi_vae_tpu_torch.parallel.launch import spawn, train_rank
+
+            print(f"Starting {n} ranks, one per device")
+            return _with_state(spawn(train_rank, n, dev.type, config), dev)
+    own_store = mesh = None
+    if dist.is_initialized() or config.step_impl == "shard_map" or config.mesh_slices:
+        own_store = ensure_process_group(dev)
+        mesh = build_mesh(config)
+    try:
+        return _run(config, dev, mesh, t_run_start)
+    finally:
+        if own_store is not None:
+            dist.destroy_process_group()
+            shutil.rmtree(own_store, ignore_errors=True)
+
+
+def _run(config: TrainConfig, dev: torch.device, mesh, t_run_start: float) -> dict:
     if config.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     if config.deterministic:
@@ -117,10 +246,17 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     n_class, _, img_channels = image_dataset_sizes(config.dataset_name)
     if config.image_size is None:
         config.image_size = 32
-    dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
     encoder_config = {"input_size": config.image_size, "n_feature": config.n_features}
-    global_batch_size = config.batch_size_per_device  # one device
-    print(f"One device; global batch size {global_batch_size}")
+    n_devices = 1 if mesh is None else mesh.num_shards
+    global_batch_size = config.batch_size_per_device * n_devices
+    if mesh is None:
+        print(f"One device; global batch size {global_batch_size}")
+    else:
+        print(
+            f"Data-parallel mesh over {n_devices} device(s)"
+            + (f" ({config.mesh_slices} slices)" if config.mesh_slices else "")
+            + f", {config.step_impl} step; global batch size {global_batch_size}"
+        )
 
     # DATASET ================================================================
     transform_args = {}
@@ -158,6 +294,9 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         (tuple(transform_train.mean), tuple(transform_train.std)) if config.bce_targets == "raw" else None
     )
     seed = config.seed if config.seed is not None else int(time.time()) % 100000
+    if config.seed is None:
+        # the loaders' shared order needs one seed on every rank
+        seed = broadcast_object(seed)
     if config.conditional and not config.num_classes:
         # resolved once and kept in the config, so the checkpoint rebuilds the
         # same model: the registry's count, else (by-folder datasets) max label + 1
@@ -186,51 +325,27 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     elif config.loss_type == "vq":
         raise ValueError("loss_type=vq requires a VQ architecture (--model VQVAE|FoldedVQVAE)")
     print(f"loading model '{config.arch}' for '{config.dataset_name}' dataset @ {config.image_size}px")
-    model = build_model(
-        config.arch,
-        in_channels=img_channels,
-        latent_dim=config.n_features,
-        input_dim=config.image_size,
-        hidden_dims=config.hidden_dims,
-        dtype=dtype,
-        fused_reparam=config.fused,
-        stem=config.stem,
-        head=config.head,
-        fold=config.fold,
-        verbose=config.verbose,
-        remat=config.remat,
-        torch_compat=config.torch_compat,
-        output_logit_bias=output_bias,
-        norm=config.norm,
-        num_classes=config.num_classes if config.conditional else 0,
-        codebook_size=config.codebook_size,
-        vq_decay=config.vq_decay,
-        seed=seed,
-        device=dev,
-    )
+    model = build_run_model(config, dev, in_channels=img_channels, seed=seed, output_bias=output_bias)
+    if mesh is not None:
+        replicate(model)  # rank 0's weights on every rank
 
     loader_kw = dict(device=dev, prefetch=config.prefetch, placement=config.data_placement)
-    loader_train = make_loader(dataset_train, global_batch_size, train=True, seed=seed, **loader_kw)
+    # rank r's rows of each global batch; the auto step's are its rows of each
+    # global micro-batch (train/state.py), the explicit step's one block
+    train_rows = eval_rows = None
+    if mesh is not None:
+        micro = config.grad_accum if config.step_impl == "auto" else 1
+        train_rows = mesh.local_rows(global_batch_size, micro)
+        eval_rows = mesh.local_rows(global_batch_size)
+    loader_train = make_loader(dataset_train, global_batch_size, train=True, seed=seed, rows=train_rows, **loader_kw)
+    loader_kw["rows"] = eval_rows
     loader_val = make_loader(dataset_val, global_batch_size, train=False, **loader_kw)
     loader_test = loader_val if not distinct_val_test else make_loader(
         dataset_test, global_batch_size, train=False, **loader_kw
     )
 
     # OPTIMIZATION ===========================================================
-    total_steps = config.epochs * len(loader_train)
-    bundle = build_optimizer(
-        model,
-        param_group_label,
-        optimizer=config.optimizer,
-        lr=scale_lr(config.lr_relative, global_batch_size),
-        lr_encoder_mult=config.lr_encoder_mult,
-        lr_decoder_mult=config.lr_decoder_mult,
-        weight_decay=config.weight_decay,
-        scheduler=config.scheduler,
-        total_steps=total_steps,
-        freeze_encoder=config.freeze_encoder,
-        grad_clip=config.grad_clip or None,
-    )
+    bundle = build_run_optimizer(config, model, global_batch_size, config.epochs * len(loader_train))
     kl_sched = kl_weight_schedule(
         config.kl_schedule,
         config.kld_weight,
@@ -246,8 +361,7 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     print(f"Model has {sum(p.numel() for p in model.parameters()):,} parameters")
     if config.pretrained and checkpoint_payload is None:
         _warm_start(state, config.pretrained)
-    train_step = make_train_step(
-        kl_sched,
+    step_kw = dict(
         log_var_clamp=config.log_var_clamp,
         free_bits=config.free_bits,
         pos_weight=pos_weight,
@@ -259,6 +373,14 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         grad_accum=config.grad_accum,
         ema_decay=config.ema_decay,
     )
+    if config.step_impl == "shard_map":
+        from midi_vae_tpu_torch.parallel.spmd import make_spmd_train_step
+
+        train_step = make_spmd_train_step(kl_sched, mesh, **step_kw)
+    elif config.step_impl == "auto":
+        train_step = make_train_step(kl_sched, mesh=mesh, **step_kw)
+    else:
+        raise ValueError(f"unknown step_impl: {config.step_impl!r} (auto|shard_map)")
     eval_step = make_eval_step(
         model, target_denorm=target_denorm,
         occupancy_denorm=(tuple(transform_eval.mean), tuple(transform_eval.std)),
@@ -273,13 +395,15 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         """``evaluate`` on the current weights: the EMA averages when tracking is on."""
         forwards["eval_batches"] += len(loader)
         params = state.ema_params if config.ema_decay is not None else None
-        return evaluate(loader, model, params, partition_name=partition_name, seed=seed, eval_step=eval_step)
+        return evaluate(loader, model, params, partition_name=partition_name, seed=seed, eval_step=eval_step,
+                        mesh=mesh)
 
     # LOGGING ================================================================
     if config.run_name is None:
         config.run_name = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     if config.run_id is None:
         config.run_id = generate_id()
+    config.run_name, config.run_id = broadcast_object((config.run_name, config.run_id))  # rank 0's
     if not config.checkpoint_path and config.models_dir:
         dataset_component = config.dataset_name.replace("/", "_").replace(":", "_")
         config.model_output_dir = os.path.join(config.models_dir, dataset_component, f"{config.run_name}__{config.run_id}")
@@ -304,6 +428,10 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     if checkpoint_payload is not None:
         print(f"Loading state from checkpoint (epoch {checkpoint_payload['epoch']})")
         state = load_state_dict(state, reconcile_ema_state_dict(checkpoint_payload["state"], state))
+        if mesh is not None:  # every rank read the file; rank 0's state is the one kept
+            replicate(model)
+            if state.ema_params is not None:
+                broadcast_(list(state.ema_params.values()))
         total_step = int(checkpoint_payload["total_step"])
         n_samples_seen = int(checkpoint_payload["n_samples_seen"])
         best_stats["best_epoch"] = int(checkpoint_payload.get("best_epoch", 0))
@@ -322,7 +450,7 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
         last_epoch = min(last_epoch, start_epoch + config.stop_after_epochs - 1)
     if config.early_stop_patience is not None and config.early_stop_patience < 1:
         raise ValueError(f"early_stop_patience must be >= 1, got {config.early_stop_patience}")
-    async_writer = AsyncCheckpointWriter() if config.async_checkpoint else None
+    async_writer = AsyncCheckpointWriter() if config.async_checkpoint and is_leader() else None
     profiler = None
     try:
         for epoch in range(start_epoch, last_epoch + 1):
@@ -408,6 +536,7 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
                     if async_writer is not None:
                         async_writer.wait()  # best copies the completed latest file
                     print(f"Copied best model to {copy_best(config.checkpoint_path)}")
+                barrier()  # no rank starts an epoch whose checkpoint rank 0 has not handed off
             duration_save = time.time() - t_start_save
 
             pre = "training/epochwise"
@@ -475,10 +604,13 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
             # [0, 1] pixels whatever --bce-targets mode trained the run
             test_stats[f"iwae-{config.final_iwae}"] = iwae_bound(
                 loader_test, eval_model, k=config.final_iwae, seed=seed,
-                target_denorm=(tuple(transform_eval.mean), tuple(transform_eval.std)),
+                target_denorm=(tuple(transform_eval.mean), tuple(transform_eval.std)), mesh=mesh,
             )
             print(f"  {f'iwae-{config.final_iwae} ':.<24s} {test_stats[f'iwae-{config.final_iwae}']:9.5f} nat/sample")
-        if config.final_mig:
+        if config.final_mig and world_size() > 1:
+            print("Skipping --final-mig under multi-process SPMD; "
+                  "run cli.evaluate --mig on the checkpoint instead")
+        elif config.final_mig:
             # disentanglement of the test posterior means against the dataset labels
             test_stats["mig"] = mig_from_loader(loader_test, eval_model, bins=config.final_mig)["mig"]
             print(f"  {'mig ':.<24s} {test_stats['mig']:9.5f}")
@@ -505,6 +637,8 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     results["best_epoch"] = best_stats["best_epoch"]
     results["steps_per_epoch"] = len(loader_train)
     results["forwards"] = forwards
+    results["mesh"] = None if mesh is None else {"axes": mesh.axis_names, "shape": mesh.shape}
+    results["config"] = config.to_dict()
     results["duration_total"] = time.time() - t_run_start
     for ldr in (loader_train, loader_val, loader_test, loader_train_eval):
         if hasattr(ldr, "release"):

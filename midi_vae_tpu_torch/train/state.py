@@ -20,10 +20,24 @@ optimizer update, as the JAX package's ``accumulate_grads`` scales its
 sum. BatchNorm's running statistics and a VQ quantizer's EMA buffers
 chain from micro to micro, since each train-mode forward updates them.
 Conditional models take their labels with the batch (``y=``).
+
+With a ``mesh`` (``parallel/mesh.py``) the step runs on every rank of a
+data-parallel group and is the one-rank step on the global batch, as the
+JAX package's jit-partitioned step is: BatchNorm statistics and a VQ
+quantizer's sums span the data group, the noise is this rank's rows of
+the global draw (the models' ``rows=``), β-TC gathers the latents, the
+free-bits floor applies to the global batch's per-dimension KL, and the
+gradients and loss terms are mean-reduced
+in one flat all-reduce before the clip and the update, which then run
+identically on every rank. Rank r's batch holds its rows of each
+global micro-batch (``Mesh.local_rows``), so local micro i is its part of
+global micro i. ``per_shard=True`` makes it the explicit per-shard step
+(``parallel/spmd.py``) from the same body.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -32,13 +46,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from midi_vae_tpu_torch.core.rng import derive_micro_seed, derive_step_seed
+from midi_vae_tpu_torch.core.rng import derive_micro_seed, derive_shard_seed, derive_step_seed
 from midi_vae_tpu_torch.core.types import LossOutput
 from midi_vae_tpu_torch.losses.elbo import elbo_loss
 from midi_vae_tpu_torch.losses.tcvae import beta_tc_elbo_loss
 from midi_vae_tpu_torch.losses.vq import vq_loss
 from midi_vae_tpu_torch.models.vae import label_kwarg
 from midi_vae_tpu_torch.ops.fused_elbo import fused_elbo_terms
+from midi_vae_tpu_torch.parallel.collectives import CrossRank, cross_rank_statistics, psum_mean_
 from midi_vae_tpu_torch.train.optim import OptimizerBundle, set_step_hyperparams
 
 
@@ -125,10 +140,15 @@ def make_loss(
     target_denorm=None,
     tc_beta: float = 6.0,
     dataset_size: int = 1,
+    tc_gather: Optional[CrossRank] = None,
+    free_bits_group: Optional[CrossRank] = None,
 ) -> Callable:
     """Build the training objective ``(ModelOutput, kld_weight) → LossOutput``,
     validating option compatibility as midi_vae_tpu/train/state.py:195-206 does.
-    ``tc_beta`` and ``dataset_size`` configure the β-TC objective."""
+    ``tc_beta`` and ``dataset_size`` configure the β-TC objective, and
+    ``tc_gather`` the group its estimator gathers the latents over;
+    ``free_bits_group`` the group whose global batch the free-bits floor
+    applies to."""
     if loss_type not in ("elbo", "beta-tc", "vq"):
         raise ValueError(f"unknown loss_type: {loss_type}")
     if loss_type != "elbo" and fused_loss:
@@ -155,6 +175,7 @@ def make_loss(
                 log_var_clamp=log_var_clamp,
                 pos_weight=pos_weight,
                 target_denorm=target_denorm,
+                gather=tc_gather,
             )
         if not fused_loss:
             return elbo_loss(
@@ -164,6 +185,7 @@ def make_loss(
                 free_bits=free_bits,
                 pos_weight=pos_weight,
                 target_denorm=target_denorm,
+                free_bits_group=free_bits_group,
             )
         lv = out.encoded.log_var
         if log_var_clamp is not None:
@@ -184,6 +206,20 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
 
 
+def _grad_norm(model: nn.Module, grads) -> torch.Tensor:
+    """The global gradient norm; on a rank of a tensor-parallel model, the
+    whole model's (``parallel/sharding_rules.py``)."""
+    if not hasattr(model, "tp_group"):
+        return _global_norm(grads)
+    from midi_vae_tpu_torch.parallel.sharding_rules import tp_global_norm
+
+    return tp_global_norm(model)
+
+
+def _running_stats(model: nn.Module):
+    return [b for name, b in model.named_buffers() if name.endswith(("running_mean", "running_var"))]
+
+
 def make_train_step(
     kl_schedule: Callable[[int], float],
     *,
@@ -197,6 +233,8 @@ def make_train_step(
     dataset_size: int = 1,
     grad_accum: int = 1,
     ema_decay: Optional[float] = None,
+    mesh=None,
+    per_shard: bool = False,
 ) -> Callable:
     """Build the train step ``(state, x, epoch_seed, *, y=None, eps=None) →
     (state, LossOutput, grad_norm)``.
@@ -210,9 +248,15 @@ def make_train_step(
     ``grad_accum`` > 1 a list of one per micro-batch. ``fused_loss=True``
     takes the BCE through the K1/K2 kernels (``ops/fused_elbo.py``).
     ``grad_norm`` is the global gradient norm before clipping.
+
+    ``mesh`` makes it the data-parallel auto step of the module docstring
+    (``x`` and ``y`` are this rank's rows); with ``per_shard`` it is the
+    explicit per-shard step of ``parallel/spmd.py`` instead.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    group = None if mesh is None else mesh.data_group
+    coords = () if mesh is None else tuple(mesh.coords[a] for a in mesh.axis_names)
     _loss = make_loss(
         loss_type=loss_type,
         fused_loss=fused_loss,
@@ -222,44 +266,70 @@ def make_train_step(
         target_denorm=target_denorm,
         tc_beta=tc_beta,
         dataset_size=dataset_size,
+        tc_gather=CrossRank(group) if mesh is not None and loss_type == "beta-tc" else None,
+        # the auto step floors the global batch's KL; the explicit step each shard's
+        free_bits_group=CrossRank(group) if mesh is not None and not per_shard and free_bits is not None else None,
     )
 
+    def draw_rows(b: int) -> Optional[Tuple[int, int]]:
+        """The auto step's rows of the global draw for a forward of ``b`` local rows."""
+        if mesh is None or per_shard:
+            return None
+        return mesh.shard_index * b, mesh.num_shards * b
+
     def forward_backward(model, x, y, seed, eps, w) -> LossOutput:
-        out = model(x, train=True, seed=seed, eps=eps, **label_kwarg(model, y))
+        out = model(x, train=True, seed=seed, eps=eps, rows=draw_rows(x.shape[0]), **label_kwarg(model, y))
         lo = _loss(out, w)
         lo.loss.backward()
         return dataclasses.replace(lo, loss=lo.loss.detach())
+
+    def synced(model):
+        """The auto step's norms and codebook span the group; the explicit
+        step's only for a VQ model, as the JAX package hands a VQ model the
+        mesh axes as ``bn_axis_name`` (``train/loop.py:237-241``)."""
+        if mesh is None or per_shard and getattr(model, "latent_kind", "gaussian") != "vq":
+            return contextlib.nullcontext()
+        return cross_rank_statistics(model, group)
 
     def step(state: TrainState, x: torch.Tensor, epoch_seed: int, *, y=None, eps=None):
         model, bundle = state.model, state.optimizer
         set_step_hyperparams(bundle, state.step)
         model.zero_grad(set_to_none=True)  # also the frozen groups, which are outside the optimizer
         step_seed = derive_step_seed(epoch_seed, state.step)
+        if per_shard:
+            step_seed = derive_shard_seed(step_seed, coords)
         w = kl_schedule(state.step)
-        if grad_accum == 1:
-            lo = forward_backward(model, x, y, step_seed, eps, w)
-        else:
-            n, b = grad_accum, x.shape[0]
-            if b % n:
-                raise ValueError(f"batch size {b} not divisible by grad_accum={n}")
-            m = b // n
-            sums = None
-            for i in range(n):
-                part = forward_backward(
-                    model, x[i * m : (i + 1) * m], None if y is None else y[i * m : (i + 1) * m],
-                    derive_micro_seed(step_seed, i), None if eps is None else eps[i], w,
-                )
-                fields = [getattr(part, f.name) for f in dataclasses.fields(LossOutput)]
-                sums = fields if sums is None else [a + v for a, v in zip(sums, fields)]
-            # the sums scaled by 1/n in f32, as accumulate_grads scales them
-            inv = float(np.float32(1.0 / n))
-            lo = LossOutput(*(v * inv for v in sums))
-            torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
+        with synced(model):
+            if grad_accum == 1:
+                lo = forward_backward(model, x, y, step_seed, eps, w)
+            else:
+                n, b = grad_accum, x.shape[0]
+                if b % n:
+                    raise ValueError(f"{'per-shard ' if per_shard else ''}batch size {b} not divisible by grad_accum={n}")
+                m = b // n
+                sums = None
+                for i in range(n):
+                    part = forward_backward(
+                        model, x[i * m : (i + 1) * m], None if y is None else y[i * m : (i + 1) * m],
+                        derive_micro_seed(step_seed, i), None if eps is None else eps[i], w,
+                    )
+                    fields = [getattr(part, f.name) for f in dataclasses.fields(LossOutput)]
+                    sums = fields if sums is None else [a + v for a, v in zip(sums, fields)]
+                # the sums scaled by 1/n in f32, as accumulate_grads scales them
+                inv = float(np.float32(1.0 / n))
+                lo = LossOutput(*(v * inv for v in sums))
+                torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-        grad_norm = _global_norm(grads)
+        if mesh is not None:
+            # one all-reduce: gradients, loss terms (and running statistics of the explicit step)
+            terms = torch.stack([lo.loss.float(), lo.reconstruction_loss.float(), lo.kld_loss.float(), lo.kl.float()])
+            buffers = _running_stats(model) if per_shard else []
+            psum_mean_(grads + [terms] + buffers, group)
+            lo = LossOutput(*terms.unbind(), kld_weight=lo.kld_weight)
+        grad_norm = _grad_norm(model, grads)
         if bundle.grad_clip is not None:
             trainable = [p.grad for g in bundle.optimizer.param_groups for p in g["params"] if p.grad is not None]
-            coef = (bundle.grad_clip / _global_norm(trainable)).clamp(max=1.0)
+            coef = (bundle.grad_clip / _grad_norm(model, trainable)).clamp(max=1.0)
             for g in trainable:
                 g.mul_(coef)
         bundle.optimizer.step()

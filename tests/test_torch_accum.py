@@ -155,7 +155,8 @@ def test_micro_seeds_are_distinct_and_drive_each_fused_draw(monkeypatch):
 
     seen = []
     real = vae_mod.fused_reparam_kl
-    monkeypatch.setattr(vae_mod, "fused_reparam_kl", lambda mu, lv, seed: seen.append(seed) or real(mu, lv, seed))
+    monkeypatch.setattr(vae_mod, "fused_reparam_kl",
+                        lambda mu, lv, seed, *offset: seen.append(seed) or real(mu, lv, seed, *offset))
     model = build_model("FoldedVAE", fused_reparam=True, device="cpu", **MODEL_KW)
     state = create_train_state(model, build_optimizer(model, param_group_label, **OPT_KW))
     step = make_train_step(kl_schedules.kl_weight_schedule("constant", KL_WEIGHT), fused_loss=True, grad_accum=4)

@@ -325,10 +325,11 @@ def test_cli_runs_on_the_gpu_unless_asked_for_the_cpu():
     "overrides,item",
     [
         (dict(arch="VQVAE", grad_accum=2), 7), (dict(loss_type="beta-tc"), 17),
-        (dict(arch="FoldedVQVAE", num_devices=2), 16),
+        (dict(arch="FoldedVQVAE", step_impl="shard_map"), 16),
         (dict(pretrained="checkpoint_latest.msgpack"), 10),
         (dict(grad_accum=2), 7), (dict(scan_steps=8), 9), (dict(checkpoint_backend="orbax"), 10),
-        (dict(num_devices=2), 16), (dict(mesh_slices=2), 16), (dict(step_impl="shard_map"), 16),
+        (dict(num_devices=1, mesh_slices=1), 16), (dict(mesh_slices=1, step_impl="shard_map"), 16),
+        (dict(step_impl="shard_map"), 16),
         (dict(conditional=True), 17), (dict(stem="s2d"), 17), (dict(norm="group"), 17), (dict(remat=True), 17),
         (dict(torch_compat=True), 17), (dict(verbose=True), 17), (dict(compilation_cache="/c"), "17e"),
         (dict(optimizer="Lion"), 17), (dict(scheduler="cosine"), 17), (dict(arch="MLPVAE"), 17),
@@ -337,9 +338,11 @@ def test_cli_runs_on_the_gpu_unless_asked_for_the_cpu():
 )
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, monkeypatch, overrides, item):
     """Options still open raise naming their ROADMAP item. The cases of items
-    7 and 17a–d (grad_accum, β-TC and MLPVAE, the optimizers and schedules,
-    conditional models, the model variants) are ported: each trains one
-    epoch on a 256-image corpus and meets its own check."""
+    7, 16 and 17a–d (grad_accum, the multi-device options, β-TC and MLPVAE,
+    the optimizers and schedules, conditional models, the model variants)
+    are ported: each trains one epoch on a 256-image corpus and meets its
+    own check (item 16's over one device, its mesh and collectives over a
+    one-rank group; several ranks: ``tests/test_torch_multirank_cli.py``)."""
     check = next((c for options, c in _PORTED_OPTIONS if options == overrides), None)
     if check is not None:
         monkeypatch.setitem(fetch.SYNTHETIC_SIZES, "vae-lines-synthetic", 256)
@@ -376,14 +379,18 @@ _PORTED_OPTIONS = [
     (dict(torch_compat=True), lambda r: type(r["state"].model.decoder.DeconvBlock_0.ConvTranspose_0).__name__
      == "TorchConvTranspose"),
     (dict(verbose=True), lambda r: r["state"].model.verbose),
+    (dict(arch="FoldedVQVAE", step_impl="shard_map"),
+     lambda r: r["mesh"] == {"axes": ("data",), "shape": (1,)} and r["final_test"]["active-codes"] > 0),
+    (dict(num_devices=1, mesh_slices=1), lambda r: r["mesh"] == {"axes": ("slice", "data"), "shape": (1, 1)}),
+    (dict(mesh_slices=1, step_impl="shard_map"), lambda r: r["mesh"] == {"axes": ("slice", "data"), "shape": (1, 1)}),
+    (dict(step_impl="shard_map"), lambda r: r["mesh"] == {"axes": ("data",), "shape": (1,)}),
 ]
 
 
 # each option still refused (train config overrides, or CLI argv) → the flag ROADMAP names it by
 _STILL_REFUSED = [
     (dict(scan_steps=8), "--scan-steps"), (dict(checkpoint_backend="orbax"), "--checkpoint-backend orbax"),
-    (dict(num_devices=2), "--num-devices"), (dict(mesh_slices=2), "--mesh-slices"),
-    (dict(step_impl="shard_map"), "--step-impl shard_map"), (dict(compilation_cache="/c"), "--compilation-cache"),
+    (dict(compilation_cache="/c"), "--compilation-cache"),
     (dict(pretrained="checkpoint_latest.msgpack"), "--pretrained"), (dict(dataset_name="rrd:/x.rrd"), "rrd:"),
 ]
 
@@ -411,6 +418,22 @@ def test_refusals_name_the_item_roadmap_lists_them_under(tmp_path, overrides, fl
     assert flag in entries[item], f"{flag}: ROADMAP item {item} does not list it"
 
 
-def test_multihost_flag_raises():
-    with pytest.raises(NotImplementedError, match="item 16"):
+def test_multihost_flag_raises(monkeypatch):
+    """--multihost joins the ranks torchrun started; without torchrun's
+    environment it raises naming what is missing."""
+    from midi_vae_tpu_torch.parallel.mesh import TORCHRUN_ENV
+
+    for key in TORCHRUN_ENV:
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         cli(["--multihost", "--cpu"])
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (dict(mesh_slices=2), "--num-devices 1 does not divide into --mesh-slices 2"),
+    (dict(num_devices=3, mesh_slices=2), "--num-devices 3 does not divide into --mesh-slices 2"),
+], ids=["one_device_two_slices", "three_devices_two_slices"])
+def test_mesh_slices_that_do_not_divide_the_devices_raise(tmp_path, overrides, match):
+    """The JAX package's divisibility error, before any rank starts."""
+    with pytest.raises(ValueError, match=match):
+        run(small_config(tmp_path, models_dir=None, **overrides), device="cpu")

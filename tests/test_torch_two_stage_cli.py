@@ -147,7 +147,7 @@ def test_augment_passes_multiply_the_corpus_with_distinct_grids(run, tmp_path, c
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--num-devices", "2"], NotImplementedError, "item 16"),
+    (["--num-devices", "-1"], SystemExit, "--num-devices must be >= 1"),
     (["--prior-arch", "transformer", "--features", "10", "--heads", "4"], SystemExit, "divisible"),
 ], ids=["num_devices", "heads"])
 def test_train_prior_guards(run, argv, error, match):
