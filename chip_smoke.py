@@ -133,11 +133,31 @@ From the repository root. It
    its forwards) and its refusal of ``--num-devices 2`` on one card. K3 in
    two halves at Philox counter offsets 0 and b·D equals the unsplit
    launch bitwise (item 4);
-14. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
+14. drives the data and utility modules: builds the host C++ libraries
+   (g++), writes an RRD of 16,384 rolls from the on-device generator
+   (256 MiB) and runs ``data.stats`` on it; one epoch of
+   ``configs/folded.yaml`` at full width, fused, on ``rrd:<file>`` with
+   ``--data-placement host`` (the native threaded loader: the batches it
+   served counted, K1–K3 launched as the run's forwards predict, samples/s,
+   the loader's wait per batch and share of the epoch, then 20 steps of
+   the stream loop timed and profiled for the device's busy share); the
+   same corpus device-resident at ``--scan-steps 1`` and ``16`` (every
+   per-step loss bitwise equal, samples/s and host syncs of each); the
+   ``midi-synthetic`` corpus's 512 files parsed natively and in Python
+   (identical note arrays, ms per file); two fresh train processes with
+   one new ``--compilation-cache DIR`` (the second builds nothing); the
+   backend probe, then ``serve --checkpoint`` of the stream run in a
+   process of its own (probe, ``--compilation-cache``) answering one
+   ``/reconstruct`` against the CPU; ``--checkpoint-backend orbax``: one
+   epoch resumed for a second against two straight epochs, bitwise; the
+   JAX package's ``.msgpack`` fixture evaluated, reconstructed and served
+   on the card against the CPU (1e-4) and a ``--pretrained`` run from it;
+15. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
    accumulated run, ``variant_launches`` for every run of item 10,
    ``model_variant_launches`` for item 11, ``artifact_launches`` for item
-   12, ``parallel_launches`` for item 13), the card line again, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   12, ``parallel_launches`` for item 13, ``data_launches`` for the
+   ``rrd:`` epoch of item 14), the card line again, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
 without a CUDA device. TF32 is off for every comparison (cuDNN and
@@ -159,6 +179,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -2387,6 +2408,406 @@ def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
     return total
 
 
+# ==================================================================== data
+
+STREAM_ROLLS = 16384  # rows of the streamed RRD corpus, 128×128×1 uint8 each (256 MiB)
+SCAN_CHUNK = 16
+CACHE_ROLLS = 1024  # the small corpus of the --compilation-cache processes
+JAX_FIXTURE = "tests/fixtures/jax_folded_lines28.msgpack"
+
+
+def write_stream_corpus(path: Path, dev, card: str) -> None:
+    """``STREAM_ROLLS`` piano rolls from the on-device generator, as uint8
+    (the ``pianoroll-synthetic`` rounding), written as one RRD file."""
+    from midi_vae_tpu_torch.data.sources import write_rrd
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rolls, labels = [], []
+    for _ in range(0, STREAM_ROLLS, 4096):
+        r, n = make_pianoroll_batch(gen, min(4096, STREAM_ROLLS), device=dev)
+        rolls.append((r * 255).to(torch.uint8).cpu())
+        labels.append(n.cpu())
+    images = torch.cat(rolls).numpy()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_rrd(images, torch.cat(labels).numpy(), str(path))
+    log(f"  wrote {STREAM_ROLLS} rolls {images.shape[1:]} ({path.stat().st_size / 2**20:.1f} MiB, fill "
+        f"{float((images > 0).mean()):.4f}) in {time.perf_counter() - t0:.2f} s [{card}]")
+
+
+class LossRecorder:
+    """Wraps the train loop's ``make_train_step`` so every step's loss is kept
+    as the step returns it (a device tensor: no host read)."""
+
+    def __init__(self):
+        from midi_vae_tpu_torch.train import loop
+
+        self.loop, self.real, self.losses = loop, loop.make_train_step, []
+
+    def __enter__(self):
+        def make(*a, **k):
+            step = self.real(*a, **k)
+
+            def recorded(state, x, seed, **kw):
+                state, lo, gn = step(state, x, seed, **kw)
+                self.losses.append(lo.loss.detach())
+                return state, lo, gn
+
+            return recorded
+
+        self.loop.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.make_train_step = self.real
+
+
+def stream_epoch(root: Path, rrd: Path, models: Path, dev, card: str) -> tuple:
+    """One epoch of ``configs/folded.yaml`` at full width, fused, on ``rrd:``
+    through the native loader (``--data-placement host``); checks the
+    loader was ``NativeDeviceLoader`` and K1–K3's launches. Returns (the
+    run's results, its launch counts)."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+    from midi_vae_tpu_torch.data import pipeline
+
+    served = {"batches": 0}
+    real_epoch = pipeline.NativeDeviceLoader.epoch
+
+    def counted(self, epoch=1):
+        for b in real_epoch(self, epoch):
+            served["batches"] += 1
+            yield b
+
+    argv = ["--config", str(root / "configs" / "folded.yaml"), "--fused", "--bce-targets", "normalized",
+            "--dataset", f"rrd:{rrd}", "--data-placement", "host", "--epochs", "1", "--seed", "0",
+            "--models-dir", str(models), "--run-name", "data", "--run-id", "stream"]
+    pipeline.NativeDeviceLoader.epoch = counted
+    try:
+        ops.reset_launch_counts()
+        r = train_cli.cli(argv)
+        counts = ops.launch_counts()
+    finally:
+        pipeline.NativeDeviceLoader.epoch = real_epoch
+    log_cli_run("rrd: stream, host placement (native loader), fused", r, card)
+    want = expected_cli_launches(r, 1)
+    evals = r["forwards"]["eval_batches"]
+    check(served["batches"] == r["steps_per_epoch"] + evals,
+          f"the native loader served {served['batches']} batches, the run took {r['steps_per_epoch']} + {evals}")
+    check(counts == want, f"stream run launched {counts}, expected {want}")
+    t = r["history"][0]["train"]
+    loader_s = t["phase_s"].get("dataloader", 0.0)
+    epoch_s = r["steps_per_epoch"] * CLI_BATCH / t["throughput"]
+    log(f"  native loader: {served['batches']} batches served; {t['throughput']:.1f} samples/s; waiting on the "
+        f"loader {loader_s / r['steps_per_epoch'] * 1e3:.3f} ms/batch, {loader_s / epoch_s:.1%} of the epoch; "
+        f"launches {counts} as the forwards predict [{card}]")
+    return r, counts
+
+
+def stream_busy_share(r: dict, rrd: Path, dev, card: str, n_steps: int = 20) -> None:
+    """The device's busy share of the streaming loop: ``n_steps`` fused steps
+    over the native loader's batches, timed, then profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from midi_vae_tpu_torch.data.pipeline import make_loader
+    from midi_vae_tpu_torch.data.sources import open_rrd_stream
+    from midi_vae_tpu_torch.data.transforms import get_transform
+
+    spec, _ = get_transform("pianoroll", 128, {})
+    loader = make_loader(open_rrd_stream(str(rrd)).with_transform(spec), CLI_BATCH, train=True, seed=1, device=dev,
+                         placement="host")
+    step = make_train_step(kl_weight_schedule("constant", KL_WEIGHT), fused_loss=True)
+    state = r["state"]
+
+    def window():
+        nonlocal state
+        batches = loader.epoch(5)
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, lo, _ = step(state, next(batches).x, 0)
+        lo.loss.item()
+        return (time.perf_counter() - t0) * 1e3 / n_steps
+
+    window()  # warm
+    step_ms = window()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)) / n_steps / 1e3
+    log(f"  stream loop: {step_ms:.3f} ms/step ({CLI_BATCH / step_ms * 1e3:.1f} samples/s) over {n_steps} steps; "
+        f"device busy {busy:.3f} ms/step = {busy / step_ms:.1%} [{card}]")
+
+
+def resident_scan_epochs(root: Path, rrd: Path, models: Path, card: str) -> dict:
+    """The same corpus device-resident: one epoch at ``--scan-steps 1`` and
+    one at ``--scan-steps 16`` from the same seed; their per-step losses
+    must be bitwise equal. Returns the launch counts of both runs."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+
+    base = ["--config", str(root / "configs" / "folded.yaml"), "--fused", "--bce-targets", "normalized",
+            "--dataset", f"rrd:{rrd}", "--data-placement", "device", "--epochs", "1", "--seed", "0",
+            "--models-dir", str(models), "--run-name", "data"]
+    runs, total = {}, {k: 0 for k in ops.KERNEL_WRAPPERS}
+    for n in (1, SCAN_CHUNK):
+        ops.reset_launch_counts()
+        with LossRecorder() as rec:
+            r = train_cli.cli(base + ["--scan-steps", str(n), "--run-id", f"scan{n}"])
+        counts = ops.launch_counts()
+        want = expected_cli_launches(r, 1)
+        check(counts == want, f"--scan-steps {n} run launched {counts}, expected {want}")
+        add_counts(total, counts)
+        runs[n] = (r, torch.stack(rec.losses).cpu())
+        t = r["history"][0]["train"]
+        log(f"  device-resident, --scan-steps {n}: {t['throughput']:.1f} samples/s, {t['host_syncs']} host syncs "
+            f"in {r['steps_per_epoch']} steps, train loss {t['loss']:.6f} [{card}]")
+    (r1, l1), (r16, l16) = runs[1], runs[SCAN_CHUNK]
+    check(len(l1) == r1["steps_per_epoch"] and torch.equal(l1, l16),
+          f"--scan-steps {SCAN_CHUNK} losses differ from --scan-steps 1 "
+          f"(max {float((l1 - l16).abs().max()) if len(l1) == len(l16) else 'length'})")
+    check(r1["history"][0]["train"]["loss"] == r16["history"][0]["train"]["loss"], "epoch mean losses differ")
+    log(f"  the {len(l1)} per-step losses of the two epochs are bitwise equal; samples/s "
+        f"{r16['history'][0]['train']['throughput'] / r1['history'][0]['train']['throughput']:.3f}× with chunks of "
+        f"{SCAN_CHUNK} [{card}]")
+    return total
+
+
+def parse_corpus(card: str) -> None:
+    """The ``midi-synthetic`` corpus's files (generated by the CLI phase)
+    parsed natively and in Python: identical note arrays, ms per file."""
+    from midi_vae_tpu_torch.data.fetch import synthetic_midi_dir
+    from midi_vae_tpu_torch.midi.parse import parse_midi
+
+    files = sorted(str(p) for p in Path(synthetic_midi_dir("midi-synthetic")).rglob("*.mid"))
+    check(len(files) == 512, f"{len(files)} files in the midi-synthetic corpus")
+    for f in files:  # the native library loaded and every file in the page cache before either is timed
+        parse_midi(f)
+    out, ms = {}, {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        out[native] = [parse_midi(f, prefer_native=native) for f in files]
+        ms[native] = (time.perf_counter() - t0) * 1e3 / len(files)
+    same = all(all(np.array_equal(getattr(a, k), getattr(b, k)) for k in ("onset", "duration", "pitch", "velocity"))
+               for a, b in zip(out[True], out[False]))
+    check(same, "native and Python parses differ")
+    notes = sum(len(a.pitch) for a in out[True])
+    log(f"  {len(files)} files, {notes} notes: native and Python note arrays identical; native {ms[True]:.4f} ms/file, "
+        f"Python {ms[False]:.4f} ms/file ({ms[False] / ms[True]:.1f}×) [{card}]")
+
+
+def compilation_cache_processes(root: Path, card: str) -> None:
+    """Two fresh processes of the train CLI with the same new
+    ``--compilation-cache DIR`` (a fused FoldedVAE epoch on a small ``rrd:``
+    corpus, so every kind of build runs): the first builds the CUDA and
+    host libraries and compiles the Triton kernels into DIR, the second
+    builds nothing."""
+    from midi_vae_tpu_torch.data.sources import write_rrd
+    from midi_vae_tpu_torch.data.synthetic import generate_line_images
+
+    work = root / "build" / "cache_check"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    images, labels = generate_line_images(CACHE_ROLLS, img_size=(28, 28), max_lines=2, line_width=2, seed=0)
+    write_rrd(images[..., None], labels, str(work / "lines.rrd"))
+    cache = work / "cache"
+    argv = [sys.executable, "-m", "midi_vae_tpu_torch.cli.train", "--dataset", f"rrd:{work / 'lines.rrd'}",
+            "--data-placement", "host", "--transform-type", "noaug", "--image-size", "28", "--model", "FoldedVAE",
+            "--fold", "4", "--hidden-dims", "8", "16", "--n_features", "4", "--fused", "--epochs", "1",
+            "--batch-size", "128", "--seed", "0", "--models-dir", str(work / "models"), "--compilation-cache", str(cache)]
+    env = {k: v for k, v in os.environ.items() if k not in ("TRITON_CACHE_DIR", cuda_lib.BUILD_DIR_ENV)}
+    env["PYTHONPATH"] = str(root)
+    seconds, built, files = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, env=env, cwd=str(root), timeout=600)
+        seconds.append(time.perf_counter() - t0)
+        check(proc.returncode == 0, f"--compilation-cache run exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        built.append([line for line in proc.stdout.splitlines() if line.startswith("built ")])
+        files.append(sorted(str(p.relative_to(cache)) for p in cache.rglob("*") if p.is_file()))
+    check(any("CUDA library" in b for b in built[0]) and any("host library rollloader" in b for b in built[0]),
+          f"the first process built {built[0]}, expected the CUDA library and the host loader")
+    check(any(f.startswith("triton/") for f in files[0]), "no Triton cache entry in DIR")
+    check(built[1] == [] and files[1] == files[0], f"the second process built {built[1]} or changed DIR")
+    log(f"  first process {seconds[0]:.2f} s ({len(built[0])} builds, {len(files[0])} files in DIR), second "
+        f"{seconds[1]:.2f} s (no build, DIR unchanged) [{card}]")
+
+
+def probe_and_serve(ckpt: Path, root: Path, dev, card: str) -> None:
+    """The backend probe in this process, then the server CLI in a process
+    of its own (its probe, ``--compilation-cache``) on ``ckpt``: one
+    ``/reconstruct`` against the CPU service on the same checkpoint."""
+    import socket
+
+    from midi_vae_tpu_torch.core.backend_check import backend_alive
+    from midi_vae_tpu_torch.serving.client import ServingClient
+    from midi_vae_tpu_torch.serving.server import InferenceService
+
+    t0 = time.perf_counter()
+    check(backend_alive(timeout_s=120.0, attempts=1), "the backend probe failed on the card")
+    log(f"  backend probe: alive in {time.perf_counter() - t0:.2f} s (1024² matmul in a subprocess) [{card}]")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    cmd = [sys.executable, "-m", "midi_vae_tpu_torch.serving.server", "--checkpoint", str(ckpt), "--port", str(port),
+           "--compilation-cache", str(root / "build" / "serve_cache")]
+    t0 = time.perf_counter()
+    server_log = root / "build" / "serve_process.log"
+    log_file = open(server_log, "w")
+    proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        client = ServingClient(f"http://127.0.0.1:{port}")
+        while True:
+            check(proc.poll() is None, f"the server exited {proc.returncode}: {server_log.read_text()[-3000:]}")
+            check(time.perf_counter() - t0 < 180, "the server did not answer /healthz in 180 s")
+            try:
+                health = client.healthz()
+                break
+            except OSError:
+                time.sleep(0.5)
+        ready = time.perf_counter() - t0
+        x = (np.random.default_rng(0).random((1, 128, 128, 1)) < 0.02).astype(np.float32) - 0.5
+        got = client.reconstruct(x)
+        cpu = InferenceService(str(ckpt), device="cpu")
+        try:
+            want = cpu.reconstruct(x)
+        finally:
+            cpu.close()
+        err = float(np.max(np.abs(got - want)))
+        check(got.shape == (1, 128, 128, 1) and err <= 1e-4, f"served /reconstruct off the CPU by {err}")
+        log(f"  serve --checkpoint (probe, --compilation-cache) answered /healthz after {ready:.2f} s "
+            f"(model {health['model']}); /reconstruct within {err:.2e} of the CPU service [{card}]")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+
+
+def orbax_resume(root: Path, models: Path, card: str) -> dict:
+    """``--checkpoint-backend orbax`` on ``configs/folded.yaml`` (fused,
+    ``midi-synthetic``): one epoch, resumed for a second (asynchronous
+    writes), against the uninterrupted two-epoch run: the weights, EMA-free
+    optimizer moments and final metrics bitwise. Returns the launches."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+    from midi_vae_tpu_torch.train.state import state_dict
+
+    base = ["--config", str(root / "configs" / "folded.yaml"), "--fused", "--bce-targets", "normalized",
+            "--epochs", "2", "--seed", "0", "--checkpoint-backend", "orbax"]
+    a, b = models / "orbax_a" / "checkpoint_latest.orbax", models / "orbax_b" / "checkpoint_latest.orbax"
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    ops.reset_launch_counts()
+    first = train_cli.cli(base + ["--stop-after-epochs", "1", "--checkpoint", str(a)])
+    resumed = train_cli.cli(base + ["--async-checkpoint", "--checkpoint", str(a)])
+    straight = train_cli.cli(base + ["--async-checkpoint", "--checkpoint", str(b)])
+    add_counts(total, ops.launch_counts())
+    check(resumed["start_epoch"] == 2 and resumed["total_step"] == straight["total_step"] == 2 * first["total_step"],
+          "the orbax resume did not continue at epoch 2")
+    sa, sb = state_dict(resumed["state"]), state_dict(straight["state"])
+    same = all(torch.equal(sa["model"][k], sb["model"][k]) for k in sa["model"]) and all(
+        torch.equal(pa[k], pb[k]) for pa, pb in zip(sa["optimizer"]["state"].values(), sb["optimizer"]["state"].values())
+        for k in pa)
+    check(same and resumed["final_test"] == straight["final_test"], "the orbax resume differs from the straight run")
+    shards = sorted(p.name for p in (a / "state").iterdir())
+    log(f"  orbax: resumed at epoch 2 bitwise equal to the uninterrupted run (weights, moments, final test); "
+        f"{a.name}/state holds {shards} [{card}]")
+    return total
+
+
+def jax_checkpoint_on_the_card(root: Path, models: Path, dev, card: str) -> dict:
+    """The JAX package's fixture checkpoint on the card: ``evaluate`` against
+    the CPU (1e-4), ``generate --mode reconstruct`` against the CPU, a
+    ``serve`` service's reconstruction against the CPU's, and a
+    ``--pretrained`` warm start. Returns the warm start's launches."""
+    from midi_vae_tpu_torch.cli import evaluate, generate
+    from midi_vae_tpu_torch.cli import train as train_cli
+    from midi_vae_tpu_torch.serving.server import InferenceService
+
+    from midi_vae_tpu_torch.models import vae
+
+    fixture = str(root / JAX_FIXTURE)
+    out = models / "jax_fixture"
+    out.mkdir(parents=True, exist_ok=True)
+    # the evaluate and reconstruct forwards sample z, from a generator whose
+    # stream differs between the card and the CPU: both take z = mu here
+    draw = vae.VanillaVAE.reparameterize
+    vae.VanillaVAE.reparameterize = lambda self, mu, log_var, **kw: mu
+    try:
+        res = {}
+        for where in ("card", "cpu"):
+            flags = ["--cpu"] if where == "cpu" else []
+            evaluate.cli(["--checkpoint", fixture, "--json", str(out / f"{where}.json"), "--seed", "0"] + flags)
+            res[where] = json.loads((out / f"{where}.json").read_text())["test"]
+        imgs = {where: generate.cli(["--checkpoint", fixture, "--mode", "reconstruct", "-n", "8", "--out",
+                                     str(out / f"{where}.png")] + (["--cpu"] if where == "cpu" else []))
+                for where in ("card", "cpu")}
+    finally:
+        vae.VanillaVAE.reparameterize = draw
+    errs = {k: abs(res["card"][k] - v) / max(abs(v), 1e-12) for k, v in res["cpu"].items()}
+    check(max(errs.values()) <= 1e-4, f"evaluate of the JAX checkpoint: card against CPU {errs}")
+    gen_err = float(np.max(np.abs(imgs["card"] - imgs["cpu"])))
+    check(gen_err <= 1e-4, f"generate --mode reconstruct of the JAX checkpoint: card against CPU {gen_err}")
+    x = (np.random.default_rng(1).random((4, 28, 28, 1)) < 0.1).astype(np.float32) - 0.5
+    services = [InferenceService(fixture), InferenceService(fixture, device="cpu")]
+    try:
+        srv_err = float(np.max(np.abs(services[0].reconstruct(x) - services[1].reconstruct(x))))
+    finally:
+        for s in services:
+            s.close()
+    check(srv_err <= 1e-4, f"the served JAX checkpoint: card against CPU {srv_err}")
+    ops.reset_launch_counts()
+    r = train_cli.cli(["--dataset", "vae-lines-synthetic", "--transform-type", "noaug", "--image-size", "28",
+                       "--model", "FoldedVAE", "--fold", "4", "--hidden-dims", "8", "16", "--n_features", "4",
+                       "--fused", "--epochs", "1", "--batch-size", "128", "--seed", "0", "--pretrained", fixture,
+                       "--ema-decay", "0.9", "--models-dir", str(models)])
+    counts = ops.launch_counts()
+    check(counts == expected_cli_launches(r, 1) and r["total_step"] == r["steps_per_epoch"],
+          f"--pretrained x.msgpack run: launches {counts}, total_step {r['total_step']}")
+    log(f"  JAX .msgpack on the card (z = mu): evaluate within {max(errs.values()):.2e} (relative) of the CPU, generate "
+        f"reconstruct within {gen_err:.2e}, served reconstruction within {srv_err:.2e}; --pretrained run "
+        f"{r['history'][0]['train']['throughput']:.1f} samples/s, test cross-entropy "
+        f"{r['final_test']['cross-entropy']:.6f} [{card}]")
+    return counts
+
+
+def data_phase(dev, root: Path, card: str) -> dict:
+    """The data and utility modules: the host libraries' build, an ``rrd:``
+    epoch of the flagship config through the native loader, the same
+    corpus device-resident with and without ``--scan-steps``, the native
+    parser against Python, ``--compilation-cache`` across two processes,
+    the backend probe and the server, sharded checkpoints, a JAX
+    ``.msgpack`` checkpoint and the ``data.stats`` CLI. Returns the
+    stream run's launches and the phase's total."""
+    from midi_vae_tpu_torch.data import stats
+    from midi_vae_tpu_torch.native import _build
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    built = _build.build()
+    check(set(built) == {"rollloader", "midiparse"}, f"host libraries {sorted(built)}")
+    log(f"  host C++ libraries in {time.perf_counter() - t0:.2f} s: " + ", ".join(
+        f"{n} {'found built' if b.seconds is None else f'g++ {b.seconds:.2f} s'}" for n, b in built.items()))
+    models = root / "build" / "data_models"
+    shutil.rmtree(models, ignore_errors=True)
+    rrd = root / "build" / "data" / "rolls.rrd"
+    write_stream_corpus(rrd, dev, card)
+    stats.cli(["--dataset", f"rrd:{rrd}", "--max-samples", "1024"])
+
+    r, stream_counts = stream_epoch(root, rrd, models, dev, card)
+    stream_busy_share(r, rrd, dev, card)
+    total = dict(stream_counts)
+    add_counts(total, resident_scan_epochs(root, rrd, models, card))
+    parse_corpus(card)
+    compilation_cache_processes(root, card)
+    probe_and_serve(Path(r["config"]["checkpoint_path"]), root, dev, card)
+    add_counts(total, orbax_resume(root, models, card))
+    add_counts(total, jax_checkpoint_on_the_card(root, models, dev, card))
+    log(f"  data phase {time.perf_counter() - t_phase:.1f} s; launches over the phase {total} [{card}]")
+    return stream_counts
+
+
 # ==================================================================== main
 
 
@@ -2433,6 +2854,8 @@ def main() -> int:
     artifact_counts = artifact_phase(dev, root, card)
     log("multi-GPU training (one rank over NCCL, two ranks over gloo, the CLI):")
     parallel_counts = parallel_phase(dev, root, card, flagship_window)
+    log("data and utilities (rrd: stream, --scan-steps, native parser, caches, probe, orbax, JAX checkpoints):")
+    data_counts = data_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -2452,6 +2875,7 @@ def main() -> int:
                 "model_variant_launches": model_counts[key],
                 "artifact_launches": artifact_counts[key],
                 "parallel_launches": parallel_counts[key],
+                "data_launches": data_counts[key],
                 "max_abs_err": max(errs[key], variant_errs[key], model_errs[key]),
                 "ms": ms,
                 "device_ms": device_ms[key],

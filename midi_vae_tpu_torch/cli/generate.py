@@ -81,10 +81,11 @@ def _load_model_and_state(checkpoint_path: str, use_ema: bool = True, payload=No
     """Build the model of a checkpoint on ``device`` and load its weights
     (the EMA averages unless ``use_ema=False``); returns ``(model, config,
     image_size, channels, dataset)``. ``payload``: an already loaded
-    checkpoint. The model computes in f32 and draws z plainly, as the JAX
+    checkpoint. The checkpoint may be the port's or a JAX package
+    ``.msgpack`` one (its flax weights mapped onto the model). The model computes in f32 and draws z plainly, as the JAX
     package's inference model does, whatever dtype trained it."""
     from midi_vae_tpu_torch.data.registry import image_dataset_sizes
-    from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
+    from midi_vae_tpu_torch.io.checkpoint import has_ema, load_checkpoint, model_weights
     from midi_vae_tpu_torch.models.registry import build_model
 
     if payload is None:
@@ -111,12 +112,9 @@ def _load_model_and_state(checkpoint_path: str, use_ema: bool = True, payload=No
         num_classes=int(cfg.get("num_classes") or 0) if cfg.get("conditional") else 0,
         device=device,
     )
-    state = payload["state"]
-    weights = dict(state["model"])
-    if use_ema and state.get("ema_params"):
-        weights.update(state["ema_params"])
+    model.load_state_dict(model_weights(payload, model, use_ema))
+    if use_ema and has_ema(payload):
         print("Using EMA-averaged weights from the checkpoint (--no-ema for raw)")
-    model.load_state_dict(weights)
     return model, cfg, image_size, channels, dataset
 
 

@@ -12,10 +12,13 @@ more GPUs than are visible raises. ``--multihost`` joins the ranks
     torchrun --nnodes H --nproc-per-node G --rdzv-endpoint HOST:PORT \
         -m midi_vae_tpu_torch.cli.train --multihost --config configs/folded.yaml
 
-Flags of features the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item (``train/loop.py``
-``check_ported``); ``--gpu``/``--cpu-workers``/``--no-cuda`` are accepted
-and inert, as in the JAX package.
+``--dataset rrd:PATH`` streams an RRD file through the native threaded
+loader, ``--scan-steps N`` runs a device-resident epoch in chunks of N
+steps, ``--checkpoint-backend orbax`` writes sharded
+``torch.distributed.checkpoint`` directories, ``--pretrained`` also takes
+a JAX package ``.msgpack`` checkpoint, and ``--compilation-cache DIR``
+keeps every kernel build in DIR. ``--gpu``/``--cpu-workers``/``--no-cuda``
+are accepted and inert, as in the JAX package.
 
 Usage::
 
@@ -105,8 +108,8 @@ def get_parser() -> argparse.ArgumentParser:
                        help="Warm-start model parameters from an existing checkpoint; optimizer "
                             "state and counters start fresh (fine-tuning — unlike --checkpoint, "
                             "which resumes). EMA weights are preferred when the checkpoint has "
-                            "them. For PyTorch reference checkpoints use "
-                            "examples/migrate_from_torch.py instead.")
+                            "them. A JAX package .msgpack checkpoint works too; for the PyTorch "
+                            "reference's state_dict use interop/torch_reference.py.")
     group.add_argument("--n_features", "--latent-dim", dest="n_features", type=int, default=10,
                        help="Latent dimensionality. Default: %(default)s")
     group.add_argument("--hidden-dims", type=int, nargs="+", default=None,
@@ -211,8 +214,9 @@ def get_parser() -> argparse.ArgumentParser:
                        help="Save and resume partially trained model state from this checkpoint.")
     group.add_argument("--checkpoint-backend", type=str, default="msgpack",
                        choices=("msgpack", "orbax"),
-                       help="Checkpoint format: one atomic msgpack file (default) or a sharded "
-                            "Orbax directory (multi-host array storage).")
+                       help="Checkpoint format: one atomic file (default; torch.save, named after "
+                            "the JAX package's msgpack) or a sharded torch.distributed.checkpoint "
+                            "directory that every rank writes its part of (.orbax, the JAX names).")
     group.add_argument("--async-checkpoint", action="store_true",
                        help="Write checkpoints on a background thread (the step loop never "
                             "stalls on serialization; at most one write in flight).")
@@ -235,7 +239,8 @@ def get_parser() -> argparse.ArgumentParser:
     group.add_argument("--profile-epochs", type=int, default=1,
                        help="Number of leading epochs to trace. Default: %(default)s")
     group.add_argument("--compilation-cache", type=str, default=None, metavar="DIR",
-                       help="Persistent compilation-cache directory (not ported yet, ROADMAP item 17e: raises).")
+                       help="Persistent compilation-cache directory: the kernels' builds and Triton's "
+                            "and inductor's caches live there, so a restart builds nothing.")
 
     # Hardware configuration args (train.py:971-1007) --------------------------
     group = parser.add_argument_group("Hardware configuration")
@@ -270,8 +275,8 @@ def get_parser() -> argparse.ArgumentParser:
                        help="Batches whose host→device copy is kept in flight (host loader). "
                             "Default: %(default)s")
     group.add_argument("--scan-steps", type=int, default=1, metavar="N",
-                       help="Train N steps per dispatch over the device-resident corpus "
-                            "(only 1 is ported; more raises). Default: %(default)s")
+                       help="Issue N train steps back to back over the device-resident corpus, "
+                            "reading their metrics once per chunk. Default: %(default)s")
     group.add_argument("--data-placement", type=str, default="auto",
                        choices=("auto", "host", "device"),
                        help="Corpus placement: 'auto' uploads corpora that fit the device data "

@@ -2,8 +2,9 @@
 
 ``fetch_dataset`` returns ``(train, val, test, distinct_val_test)``:
 
-- folder datasets (``sageev*``, ``vae-lines*``, ``midi*``) and the
-  ``*-synthetic`` ones split 80/20 train/test with a seeded permutation;
+- folder datasets (``sageev*``, ``vae-lines*``, ``midi*``), the
+  ``*-synthetic`` ones and ``rrd:PATH`` streams split 80/20 train/test
+  with a seeded permutation (a stream's splits are lazy row subsets);
 - MNIST and SVHN use their own train/test files, read from local disk
   only (the port downloads nothing);
 - val is test unless prototyping, where val is a K-fold slice of train
@@ -26,7 +27,14 @@ import numpy as np
 
 from midi_vae_tpu_torch.core.device import DeviceLike
 from midi_vae_tpu_torch.data.registry import TRAIN_TEST_RATIO
-from midi_vae_tpu_torch.data.sources import ArrayDataset, load_image_folder, load_midi_folder, load_mnist, load_svhn
+from midi_vae_tpu_torch.data.sources import (
+    ArrayDataset,
+    load_image_folder,
+    load_midi_folder,
+    load_mnist,
+    load_svhn,
+    open_rrd_stream,
+)
 from midi_vae_tpu_torch.data.splits import create_train_val_split, random_train_test_split
 from midi_vae_tpu_torch.data.synthetic import generate_line_images
 from midi_vae_tpu_torch.data.transforms import TransformSpec
@@ -124,8 +132,11 @@ def fetch_image_dataset(
             transform_eval
         )
     if dataset.startswith("rrd:"):
-        raise NotImplementedError(
-            "rrd: stream datasets are not ported to the PyTorch package yet (ROADMAP Queue 1 item 9)"
+        # an out-of-core RRD stream: the splits stay lazy row subsets
+        full = open_rrd_stream(dataset[4:])
+        train_idx, test_idx = random_train_test_split(len(full), TRAIN_TEST_RATIO, seed=split_seed)
+        return full.subset(train_idx).with_transform(transform_train), None, full.subset(test_idx).with_transform(
+            transform_eval
         )
     if dataset in ("mnist", "svhn"):
         try:

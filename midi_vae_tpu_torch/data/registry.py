@@ -22,9 +22,11 @@ def image_dataset_sizes(dataset: str):
         # variants generate theirs in a temporary directory
         return -1, 128, 1
     if dataset.startswith("rrd:"):
-        raise NotImplementedError(
-            "rrd: stream datasets are not ported to the PyTorch package yet (ROADMAP Queue 1 item 9)"
-        )
+        # an out-of-core RRD stream: the name carries the path, the header the shape
+        from midi_vae_tpu_torch.data.sources import rrd_shape
+
+        _, h, w, c = rrd_shape(dataset[4:])
+        return -1, min(h, w), c
     if dataset == "mnist":
         return 10, 28, 1
     if dataset == "svhn":

@@ -9,9 +9,12 @@ The rasterized MIDI corpus is cached next to its tree in the JAX
 package's RRD layout (a 40-byte header of five little-endian uint64
 words — magic, n, h, w, c — then the uint8 images, then int64 labels),
 read and written here with numpy: a cache written by either package
-loads in the other. Streaming an RRD file without loading it
-(``RRDStreamDataset``) and downloads are not ported (ROADMAP Queue 1
-item 9; there is no network where the port runs).
+loads in the other. An RRD file can also be streamed without loading it
+(:class:`RRDStreamDataset`, the ``rrd:PATH`` dataset names): its splits
+stay lazy row subsets, and the native threaded loader
+(``native/rollloader.cc``) gathers each batch from the mapped file.
+Downloads are not ported (ROADMAP Queue 1 item 9; there is no network
+where the port runs).
 """
 
 from __future__ import annotations
@@ -76,9 +79,10 @@ def write_rrd(images: np.ndarray, labels: np.ndarray, path: str) -> None:
     os.rename(path + ".tmp", path)
 
 
-def read_rrd(path: str) -> Tuple[np.ndarray, np.ndarray]:
+def read_rrd(path: str, mmap: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """(images uint8 [N, H, W, C], labels int64 [N]) of an RRD file; raises
-    on a wrong magic or a file shorter than its header declares."""
+    on a wrong magic or a file shorter than its header declares. ``mmap``
+    maps the images read-only instead of reading them."""
     header = np.fromfile(path, dtype=np.uint64, count=5)
     if len(header) != 5 or header[0] != _RRD_MAGIC:
         raise ValueError(f"not an RRD file: {path}")
@@ -90,9 +94,51 @@ def read_rrd(path: str) -> Tuple[np.ndarray, np.ndarray]:
         raise ValueError(
             f"corrupt RRD file {path}: header declares {need} bytes, file has {actual} (delete the cache and rebuild)"
         )
-    images = np.fromfile(path, dtype=np.uint8, count=image_bytes, offset=_RRD_HEADER_BYTES).reshape(n, h, w, c)
+    if mmap:
+        images = np.memmap(path, dtype=np.uint8, mode="r", offset=_RRD_HEADER_BYTES, shape=(n, h, w, c))
+    else:
+        images = np.fromfile(path, dtype=np.uint8, count=image_bytes, offset=_RRD_HEADER_BYTES).reshape(n, h, w, c)
     labels = np.fromfile(path, dtype=np.int64, count=n, offset=_RRD_HEADER_BYTES + image_bytes)
     return images, labels
+
+
+@dataclasses.dataclass
+class RRDStreamDataset:
+    """An out-of-core dataset: an RRD file streamed by the native threaded
+    loader instead of resident arrays. ``indices`` is the split's row
+    subset of the file, so splits stay lazy; ``data/pipeline.py``
+    ``make_loader`` routes it to ``NativeDeviceLoader``."""
+
+    path: str
+    indices: np.ndarray  # int64 rows of the file
+    name: str = ""
+    transform: Optional[TransformSpec] = None
+    is_rrd_stream = True
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    @property
+    def labels(self) -> np.ndarray:
+        """This split's labels (reads the label block only)."""
+        return read_rrd(self.path, mmap=True)[1][self.indices]
+
+    def subset(self, indices: np.ndarray) -> "RRDStreamDataset":
+        return dataclasses.replace(self, indices=self.indices[indices])
+
+    def with_transform(self, transform: TransformSpec) -> "RRDStreamDataset":
+        return dataclasses.replace(self, transform=transform)
+
+
+def open_rrd_stream(path: str) -> RRDStreamDataset:
+    """An RRD file as a streaming dataset over all its rows (header checked)."""
+    n = rrd_shape(path)[0]
+    return RRDStreamDataset(path=path, indices=np.arange(n, dtype=np.int64), name=os.path.basename(path))
+
+
+def rrd_shape(path: str) -> Tuple[int, int, int, int]:
+    """(n, h, w, c) of an RRD file, from its checked header."""
+    return read_rrd(path, mmap=True)[0].shape
 
 
 # ---------------------------------------------------------------- ImageFolder

@@ -5,6 +5,10 @@
   device from an explicit ``torch.Generator``. The stream differs from
   JAX's threefry one; the distribution is the same (notes per roll,
   pitch/onset/duration ranges, velocities in [0.25, 1]).
+- :func:`make_lines_batch`: random horizontal and vertical line images
+  generated on the device, split into its draws (:func:`lines_draws`,
+  from a ``torch.Generator``) and a rasteriser that takes them
+  (:func:`rasterize_lines`), so the JAX package's draws can be injected.
 - :func:`generate_line_images`: the host line-image factory, the JAX
   package's numpy code, so a seed gives the same images in both packages.
 """
@@ -12,7 +16,7 @@
 from __future__ import annotations
 
 import warnings
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +57,85 @@ def make_pianoroll_batch(
     roll = torch.zeros((B, pitches, steps), dtype=torch.float32, device=dev)
     roll.scatter_reduce_(1, pitch[..., None].expand(B, N, steps), vals, reduce="amax", include_self=True)
     return roll[..., None], num_notes[:, 0]
+
+
+def lines_draws(
+    generator: torch.Generator,
+    batch_size: int,
+    height: int = 128,
+    width: int = 128,
+    max_lines: int = 20,
+    line_width: int = 0,
+    full_length: bool = False,
+    device: DeviceLike = "cuda",
+) -> Dict[str, torch.Tensor]:
+    """The random draws of a line batch, int64 tensors on ``device``:
+    ``num_lines`` [B, 1] in 1..``max_lines``; per line slot [B, L]:
+    ``vertical`` (bool), the band's centre ``pos_v`` (a column) or
+    ``pos_h`` (a row), its width ``w`` (1..5, or ``line_width``), and its
+    extent ``start_v``/``end_v`` (rows of a vertical line) or
+    ``start_h``/``end_h`` (columns of a horizontal one), the whole side
+    under ``full_length``. The ranges are the JAX package's
+    ``make_lines_batch``'s; the stream is the generator's."""
+    dev = resolve_device(device)
+    B, L = batch_size, max_lines
+    kw = dict(generator=generator, device=dev)
+    draws = {
+        "num_lines": torch.randint(1, max_lines + 1, (B, 1), **kw),
+        "vertical": torch.rand((B, L), **kw) < 0.5,
+        "pos_v": torch.randint(0, width, (B, L), **kw),
+        "pos_h": torch.randint(0, height, (B, L), **kw),
+        "w": torch.randint(1, 6, (B, L), **kw) if line_width == 0 else torch.full((B, L), line_width, device=dev),
+    }
+    if full_length:
+        zeros = torch.zeros((B, L), dtype=torch.int64, device=dev)
+        draws.update(start_v=zeros, end_v=zeros + height, start_h=zeros, end_h=zeros + width)
+    else:
+        for axis, extent in (("v", height), ("h", width)):
+            start = torch.randint(0, extent, (B, L), **kw)
+            length = torch.randint(0, extent, (B, L), **kw) % torch.clamp(extent - start, min=1)
+            draws[f"start_{axis}"], draws[f"end_{axis}"] = start, start + length
+    return draws
+
+
+def rasterize_lines(draws: Dict[str, torch.Tensor], height: int = 128, width: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(images float32 [B, H, W, 1] in {0, 1}, line counts [B]) of
+    :func:`lines_draws`' draws: each active slot's band of ``w`` around its
+    centre over its extent, OR-ed over the slots."""
+    num_lines = draws["num_lines"]
+    dev = num_lines.device
+    L = draws["vertical"].shape[1]
+    active = torch.arange(L, device=dev)[None, :] < num_lines  # [B, L]
+    rows = torch.arange(height, device=dev).reshape(1, 1, height, 1)
+    cols = torch.arange(width, device=dev).reshape(1, 1, 1, width)
+
+    def edge(t):
+        return t[:, :, None, None]
+
+    w = draws["w"]
+    vlo, vhi = edge(draws["pos_v"] - w // 2), edge(draws["pos_v"] + w // 2 + 1)
+    mask_v = (cols >= vlo) & (cols < vhi) & (rows >= edge(draws["start_v"])) & (rows < edge(draws["end_v"]))
+    hlo, hhi = edge(draws["pos_h"] - w // 2), edge(draws["pos_h"] + w // 2 + 1)
+    mask_h = (rows >= hlo) & (rows < hhi) & (cols >= edge(draws["start_h"])) & (cols < edge(draws["end_h"]))
+    line_mask = torch.where(edge(draws["vertical"]), mask_v, mask_h) & edge(active)
+    return line_mask.any(dim=1).float()[..., None], num_lines[:, 0]
+
+
+def make_lines_batch(
+    generator: torch.Generator,
+    batch_size: int,
+    height: int = 128,
+    width: int = 128,
+    max_lines: int = 20,
+    line_width: int = 0,
+    full_length: bool = False,
+    device: DeviceLike = "cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """On-device synthetic line batch (counterpart of the JAX package's
+    ``make_lines_batch``): float32 [B, H, W, 1] in {0, 1} and the line
+    counts. ``generator`` must live on ``device``."""
+    draws = lines_draws(generator, batch_size, height, width, max_lines, line_width, full_length, device)
+    return rasterize_lines(draws, height, width)
 
 
 def _draw_line(img: np.ndarray, rng: np.random.Generator, line_width: int, full_length: bool) -> None:

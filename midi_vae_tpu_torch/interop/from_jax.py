@@ -41,7 +41,7 @@ name by name.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,17 +127,34 @@ def _lookup(tree: Mapping, path: Tuple[str, ...]) -> np.ndarray:
     return np.asarray(tree)
 
 
+def torch_state_dict(
+    model: nn.Module, params: Mapping, batch_stats: Mapping, ema_params: Optional[Mapping] = None
+) -> Dict[str, torch.Tensor]:
+    """``model``'s state dict built from flax ``params`` and ``batch_stats``
+    (CPU tensors in each entry's dtype); with ``ema_params`` (a params tree,
+    the JAX ``TrainState.ema_params``) the parameters come from it instead.
+
+    Raises if a torch entry has no flax counterpart or the shapes differ.
+    """
+    trees = {"params": ema_params or params, "batch_stats": batch_stats}
+    names = flax_name_map(model)
+    out = {}
+    for name, ref in model.state_dict().items():
+        collection, path = names[name]
+        module, leaf, _ = _owner(model, name)
+        value = _to_torch(module, leaf, _lookup(trees[collection], path))
+        if tuple(value.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: flax {'/'.join(path)} has shape {value.shape}, torch {tuple(ref.shape)}")
+        out[name] = torch.from_numpy(np.array(value)).to(ref.dtype)  # a copy: decoded arrays are read-only
+    return out
+
+
 @torch.no_grad()
 def load_flax_variables(model: nn.Module, params: Mapping, batch_stats: Mapping) -> None:
     """Copy flax ``params`` and ``batch_stats`` into ``model`` in place.
 
     Raises if a torch entry has no flax counterpart or the shapes differ.
     """
-    trees = {"params": params, "batch_stats": batch_stats}
     state = model.state_dict()
-    for name, (collection, path) in flax_name_map(model).items():
-        module, leaf, _ = _owner(model, name)
-        value = _to_torch(module, leaf, _lookup(trees[collection], path))
-        if tuple(value.shape) != tuple(state[name].shape):
-            raise ValueError(f"{name}: flax {'/'.join(path)} has shape {value.shape}, torch {tuple(state[name].shape)}")
-        state[name].copy_(torch.from_numpy(np.ascontiguousarray(value)))
+    for name, value in torch_state_dict(model, params, batch_stats).items():
+        state[name].copy_(value)

@@ -7,10 +7,18 @@ The payload is the JAX package's: ``state`` (``train/state.py``
 It is written with ``torch.save`` — plain tensors, dicts and scalars,
 every tensor moved to the CPU — to ``checkpoint_latest.pt``, through a
 ``.tmp.``-prefixed file renamed into place, so the latest file is always
-complete. ``best_model.pt`` is a copy of it.
+complete. ``best_model.pt`` is a copy of it. That is the default backend
+(``--checkpoint-backend msgpack``, named after the JAX package's file
+format). ``--checkpoint-backend orbax`` writes a sharded directory
+instead (``io/dcp_io.py``: ``torch.distributed.checkpoint``, every rank
+writing its part), ``checkpoint_latest.orbax`` and ``best_model.orbax``.
 
-Loading a JAX package checkpoint (flax msgpack) and the Orbax backend
-are not ported (ROADMAP Queue 1 item 10).
+:func:`load_checkpoint` reads all three kinds: the port's files, the
+port's directories, and the JAX package's ``.msgpack`` checkpoints
+(``io/flax_msgpack.py``). A JAX payload keeps its flax ``state``
+(``params``, ``batch_stats``, ``opt_state``, ``step``, ``ema_params``)
+and is marked ``"state_format": "flax"``; :func:`model_weights` maps it
+onto a model of the port (``interop/from_jax.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from midi_vae_tpu_torch.parallel.mesh import is_leader
 
 CHECKPOINT_LATEST = "checkpoint_latest.pt"
 BEST_MODEL = "best_model.pt"
+FLAX_STATE = "flax"
 
 
 def _to_cpu(tree):
@@ -50,17 +59,15 @@ def save_checkpoint(
     encoder_config: Optional[Dict[str, Any]] = None,
     transform_args: Optional[Dict[str, Any]] = None,
     best_epoch: int = 0,
+    backend: str = "msgpack",
     **extra,
 ) -> None:
     """Write a checkpoint atomically; ``state`` is a state dict of plain
-    tensors (``train.state.state_dict``), copied to the CPU here unless it
-    already is. Rank 0 of a data-parallel run writes; the other ranks
-    return at once."""
-    if not is_leader():
-        return
-    os.makedirs(os.path.dirname(os.path.abspath(checkpoint_path)), exist_ok=True)
-    payload = {
-        "state": _to_cpu(state),
+    tensors (``train.state.state_dict``). The default backend copies it to
+    the CPU and rank 0 of a data-parallel run writes one file (the other
+    ranks return at once); ``backend="orbax"`` writes a sharded directory
+    to which every rank contributes (``io/dcp_io.py``), so every rank calls it."""
+    meta = {
         "config": config or {},
         "epoch": epoch,
         "total_step": total_step,
@@ -70,6 +77,15 @@ def save_checkpoint(
         "best_epoch": best_epoch,
         **extra,
     }
+    if backend == "orbax":
+        from midi_vae_tpu_torch.io.dcp_io import save_checkpoint_dcp
+
+        save_checkpoint_dcp(checkpoint_path, state, **meta)
+        return
+    if not is_leader():
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(checkpoint_path)), exist_ok=True)
+    payload = {"state": _to_cpu(state), **meta}
     head, tail = os.path.split(checkpoint_path)
     tmp_path = os.path.join(head, ".tmp." + tail)
     torch.save(payload, tmp_path)
@@ -77,13 +93,45 @@ def save_checkpoint(
 
 
 def load_checkpoint(checkpoint_path: str) -> Dict[str, Any]:
-    """Read a checkpoint written by :func:`save_checkpoint` (tensors on the CPU)."""
-    if checkpoint_path.endswith(".msgpack") or os.path.isdir(checkpoint_path):
-        raise NotImplementedError(
-            f"{checkpoint_path}: JAX package checkpoints (msgpack, Orbax) do not load in the "
-            "PyTorch package yet (ROADMAP Queue 1 item 10)"
-        )
+    """Read a checkpoint (tensors on the CPU): a file or directory of
+    :func:`save_checkpoint`, or a JAX package ``.msgpack`` file (its flax
+    state kept, ``"state_format": "flax"``). A directory is read by every
+    rank of a process group together."""
+    from midi_vae_tpu_torch.io.dcp_io import is_orbax_checkpoint, load_checkpoint_dcp
+
+    if is_orbax_checkpoint(checkpoint_path):
+        return load_checkpoint_dcp(checkpoint_path)
+    if checkpoint_path.endswith(".msgpack"):
+        from midi_vae_tpu_torch.io.flax_msgpack import load
+
+        payload = load(checkpoint_path)
+        if not isinstance(payload, dict) or not isinstance(payload.get("state"), dict):
+            raise ValueError(f"{checkpoint_path}: not a JAX package checkpoint (no state)")
+        payload["state_format"] = FLAX_STATE
+        return payload
     return torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+
+
+def model_weights(payload: Dict[str, Any], model, use_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """The state dict to load into ``model`` from a checkpoint payload of
+    either package: its parameters and running statistics, the parameters
+    replaced by their EMA averages when ``use_ema`` and the checkpoint has
+    them (a VQ model's codebook buffers always come from the run's own)."""
+    state = payload["state"]
+    if payload.get("state_format") == FLAX_STATE:
+        from midi_vae_tpu_torch.interop.from_jax import torch_state_dict
+
+        return torch_state_dict(model, state.get("params", {}), state.get("batch_stats", {}),
+                                ema_params=state.get("ema_params") if use_ema else None)
+    weights = dict(state["model"])
+    if use_ema and state.get("ema_params"):
+        weights.update(state["ema_params"])
+    return weights
+
+
+def has_ema(payload: Dict[str, Any]) -> bool:
+    """Whether a checkpoint payload of either package carries EMA averages."""
+    return bool(payload["state"].get("ema_params"))
 
 
 class AsyncCheckpointWriter:
@@ -122,8 +170,13 @@ class AsyncCheckpointWriter:
 
 def copy_best(checkpoint_path: str, best_path: Optional[str] = None) -> str:
     """Copy the latest checkpoint to the best-model file (temp file, then
-    replace); rank 0 of a data-parallel run copies, the others only return
-    the path."""
+    replace) or directory (``best_model.orbax``, staged and swapped); rank 0
+    of a data-parallel run copies, the others only return the path."""
+    if os.path.isdir(checkpoint_path):
+        from midi_vae_tpu_torch.io.dcp_io import ORBAX_BEST_MODEL, copy_best_dir
+
+        best_path = best_path or os.path.join(os.path.dirname(checkpoint_path), ORBAX_BEST_MODEL)
+        return copy_best_dir(checkpoint_path, best_path) if is_leader() else best_path
     if best_path is None:
         best_path = os.path.join(os.path.dirname(checkpoint_path), BEST_MODEL)
     if not is_leader():

@@ -7,8 +7,8 @@ all tracks, as the spec requires for format 1) are applied when
 converting ticks to seconds; note-on with velocity 0 is treated as
 note-off; unterminated notes close at the end of the track.
 
-The port parses with this reader only (``midi/parse.py``); the JAX
-package's native C++ parser is not ported yet.
+It is the oracle of the native C++ parser (``native/midiparse.cc``),
+which ``midi/parse.py`` uses by default.
 """
 
 from __future__ import annotations

@@ -112,6 +112,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
         target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)  # atomic: a concurrent loader sees the old state or the whole library
         done[name] = Built(target, seconds, log)
+        print(f"built CUDA library {name} with nvcc in {seconds:.1f} s -> {target}")
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return done

@@ -64,13 +64,17 @@ application/x-npy``. The npy /encode answer is one [N, 2·latent_dim]
 array, ``mu ‖ log_var``. Errors are always JSON: 400 for the client's
 faults, 413 for an oversized body, 500 for the server's own.
 
-Not ported yet: ``--compilation-cache`` (ROADMAP Queue 1 item 17e).
+The CLI probes the GPU in a subprocess before it binds
+(``core/backend_check.py``) unless ``--cpu`` or ``--skip-backend-check``,
+and exits 1 when the probe fails; ``--compilation-cache DIR`` points the
+kernel and compiler caches into DIR (``core/compile_cache.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -83,10 +87,6 @@ from midi_vae_tpu_torch.core.device import DeviceLike
 from midi_vae_tpu_torch.models.vae import label_kwarg
 from midi_vae_tpu_torch.serving.batcher import MicroBatcher, _bucket
 from midi_vae_tpu_torch.serving.wire import BINARY_CONTENT_TYPES, NPY_CONTENT_TYPE, npy_dumps, npy_loads
-
-
-def _not_ported(what: str, item) -> str:
-    return f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 item {item})"
 
 
 class InferenceService:
@@ -575,7 +575,8 @@ def serve(
 def cli(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(description="Serve a trained VAE checkpoint over HTTP")
     source = parser.add_mutually_exclusive_group(required=True)
-    source.add_argument("--checkpoint", help="Training checkpoint (.pt of this package)")
+    source.add_argument("--checkpoint", help="Training checkpoint (this package's .pt or .orbax directory, "
+                                             "or a JAX package .msgpack)")
     source.add_argument("--artifact", metavar="DIR",
                         help="Exported artifact directory (interop/aot_export.py): serve its torch.export "
                              "programs, no model code or checkpoint needed")
@@ -585,13 +586,24 @@ def cli(argv: Optional[list] = None):
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--compilation-cache", type=str, default=None, metavar="DIR",
-                        help="Persistent compilation cache (not ported yet, ROADMAP item 17e)")
-    parser.add_argument("--cpu", action="store_true", help="Serve on the CPU instead of the GPU")
+                        help="Persistent compilation-cache directory: the kernels' builds and Triton's and "
+                             "inductor's caches live there, so a restart builds nothing")
+    parser.add_argument("--cpu", action="store_true", help="Serve on the CPU instead of the GPU (also skips the probe)")
     parser.add_argument("--skip-backend-check", action="store_true",
-                        help="Accepted for parity; the GPU check is the device's own and always runs")
+                        help="Skip the startup GPU liveness probe")
     args = parser.parse_args(argv)
+    if not (args.skip_backend_check or args.cpu):
+        from midi_vae_tpu_torch.core.backend_check import backend_alive
+
+        # a wedged device would otherwise hang the server at its first CUDA
+        # call, with no error and no listening socket
+        if not backend_alive():
+            print("FATAL: CUDA backend unreachable (device probe never completed); not starting", file=sys.stderr)
+            raise SystemExit(1)
     if args.compilation_cache:
-        raise NotImplementedError(_not_ported("--compilation-cache", "17e"))
+        from midi_vae_tpu_torch.core.compile_cache import enable_compilation_cache
+
+        print(f"persistent compilation cache: {enable_compilation_cache(args.compilation_cache)}")
     httpd = serve(args.checkpoint, args.port, args.host, device="cpu" if args.cpu else "cuda",
                   artifact=args.artifact, prior=args.prior)
     try:

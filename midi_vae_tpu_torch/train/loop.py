@@ -25,8 +25,13 @@ metrics and images, with a barrier after each save. A one-device run with
 ``step_impl="shard_map"`` or a mesh option runs its collectives over a
 one-rank group.
 
-Options the port does not have yet raise ``NotImplementedError`` naming
-their ROADMAP item (:func:`check_ported`), before any work is done.
+The data and utility options: ``rrd:PATH`` datasets stream through the
+native loader; ``--scan-steps N`` runs a device-resident train epoch in
+chunks of N steps with one host read per chunk (the per-batch epoch's
+steps exactly); ``--checkpoint-backend orbax`` writes sharded directories
+(``io/dcp_io.py``) and a resume detects either format and keeps writing
+it; ``--pretrained`` takes a JAX package ``.msgpack`` checkpoint too;
+``--compilation-cache DIR`` keeps the process's kernel builds in DIR.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from midi_vae_tpu_torch.core.compile_cache import enable_compilation_cache
 from midi_vae_tpu_torch.core.device import DeviceLike, resolve_device
 from midi_vae_tpu_torch.core.rng import epoch_seed as derive_epoch_seed
 from midi_vae_tpu_torch.data.fetch import fetch_dataset
@@ -57,12 +63,15 @@ from midi_vae_tpu_torch.evaluation.inference import reconstruction_grid
 from midi_vae_tpu_torch.evaluation.iwae import iwae_bound
 from midi_vae_tpu_torch.io.checkpoint import (
     CHECKPOINT_LATEST,
+    FLAX_STATE,
     AsyncCheckpointWriter,
     copy_best,
     load_checkpoint,
+    model_weights,
     restore_config,
     save_checkpoint,
 )
+from midi_vae_tpu_torch.io.dcp_io import ORBAX_CHECKPOINT_LATEST, DCPAsyncWriter, is_orbax_checkpoint
 from midi_vae_tpu_torch.io.logging import MetricLogger, PhaseTimer, generate_id, print_epoch_summary, write_png
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.registry import VQ_ARCHS, build_model
@@ -86,19 +95,6 @@ from midi_vae_tpu_torch.train.state import (
     reconcile_ema_state_dict,
     state_dict,
 )
-
-def check_ported(config: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for an option the port does not have
-    yet, naming its ROADMAP item (Queue 1)."""
-    gaps = [
-        (config.scan_steps != 1, "--scan-steps > 1 (scan-chunked epochs)", 9),
-        (config.checkpoint_backend == "orbax", "--checkpoint-backend orbax", 10),
-        (config.compilation_cache, "--compilation-cache", "17e"),
-    ]
-    for missing, what, item in gaps:
-        if missing:
-            raise NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 item {item})")
-
 
 def requested_devices(config: TrainConfig, dev: torch.device) -> int:
     """The devices a run asks for: ``num_devices``, else every visible GPU
@@ -191,8 +187,10 @@ def run(config: TrainConfig, device: DeviceLike = "cuda") -> dict:
     devices starts one rank each and returns rank 0's results, its state
     rebuilt on ``device``: the same dict as a run on one device."""
     t_run_start = time.time()
+    if config.compilation_cache:
+        # before any build: what is already built in this process is not cached
+        print(f"Persistent compilation cache: {enable_compilation_cache(config.compilation_cache)}")
     dev = resolve_device(device)
-    check_ported(config)
     if not dist.is_initialized():
         n = requested_devices(config, dev)
         if config.mesh_slices and n % config.mesh_slices:
@@ -230,7 +228,8 @@ def _run(config: TrainConfig, dev: torch.device, mesh, t_run_start: float) -> di
     checkpoint_payload = None
     if config.checkpoint_path:
         config.model_output_dir = os.path.dirname(config.checkpoint_path)
-        if not os.path.isfile(config.checkpoint_path):
+        # a checkpoint exists as a file or as a complete orbax-backend directory
+        if not (os.path.isfile(config.checkpoint_path) or is_orbax_checkpoint(config.checkpoint_path)):
             print(
                 "Skipping premature resumption from preemption: no checkpoint file"
                 f" found at '{config.checkpoint_path}'"
@@ -238,8 +237,18 @@ def _run(config: TrainConfig, dev: torch.device, mesh, t_run_start: float) -> di
         else:
             print(f"Loading resumption checkpoint '{config.checkpoint_path}'")
             checkpoint_payload = load_checkpoint(config.checkpoint_path)
+            if checkpoint_payload.get("state_format") == FLAX_STATE:
+                raise ValueError(
+                    f"{config.checkpoint_path} is a JAX package checkpoint: the PyTorch package cannot resume "
+                    "its optimizer state (the JAX package cannot resume a port checkpoint either); start from "
+                    "its weights with --pretrained instead"
+                )
             config = TrainConfig.from_dict(restore_config(config.to_dict(), checkpoint_payload.get("config", {})))
-            check_ported(config)
+            # keep writing the format resumed from: a file cannot be saved as a directory, nor the reverse
+            resumed_backend = "orbax" if is_orbax_checkpoint(config.checkpoint_path) else "msgpack"
+            if config.checkpoint_backend != resumed_backend:
+                print(f"Note: resumed a {resumed_backend} checkpoint; saves stay {resumed_backend}.")
+                config.checkpoint_backend = resumed_backend
     start_epoch = 1 if checkpoint_payload is None else int(checkpoint_payload["epoch"]) + 1
 
     # MODEL SIZING ===========================================================
@@ -407,7 +416,8 @@ def _run(config: TrainConfig, dev: torch.device, mesh, t_run_start: float) -> di
     if not config.checkpoint_path and config.models_dir:
         dataset_component = config.dataset_name.replace("/", "_").replace(":", "_")
         config.model_output_dir = os.path.join(config.models_dir, dataset_component, f"{config.run_name}__{config.run_id}")
-        config.checkpoint_path = os.path.join(config.model_output_dir, CHECKPOINT_LATEST)
+        latest = CHECKPOINT_LATEST if config.checkpoint_backend == "msgpack" else ORBAX_CHECKPOINT_LATEST
+        config.checkpoint_path = os.path.join(config.model_output_dir, latest)
     print("Model will not be saved." if not config.checkpoint_path else f"Model will be saved to '{config.checkpoint_path}'")
     logger = MetricLogger(
         config.model_output_dir,
@@ -450,7 +460,11 @@ def _run(config: TrainConfig, dev: torch.device, mesh, t_run_start: float) -> di
         last_epoch = min(last_epoch, start_epoch + config.stop_after_epochs - 1)
     if config.early_stop_patience is not None and config.early_stop_patience < 1:
         raise ValueError(f"early_stop_patience must be >= 1, got {config.early_stop_patience}")
-    async_writer = AsyncCheckpointWriter() if config.async_checkpoint and is_leader() else None
+    # the orbax backend's writes are collective: every rank keeps a writer
+    if config.async_checkpoint and config.checkpoint_backend == "orbax":
+        async_writer = DCPAsyncWriter()
+    else:
+        async_writer = AsyncCheckpointWriter() if config.async_checkpoint and is_leader() else None
     profiler = None
     try:
         for epoch in range(start_epoch, last_epoch + 1):
@@ -527,6 +541,7 @@ def _run(config: TrainConfig, dev: torch.device, mesh, t_run_start: float) -> di
                     best_epoch=best_stats["best_epoch"],
                     best_metric=best_stats["best_metric"],
                     best_metric_name=best_stats["best_metric_name"],
+                    backend=config.checkpoint_backend,
                 )
                 if async_writer is not None:
                     async_writer.save(config.checkpoint_path, state_dict(state), **save_kwargs)
@@ -649,15 +664,15 @@ def _run(config: TrainConfig, dev: torch.device, mesh, t_run_start: float) -> di
 
 def _warm_start(state, path: str) -> None:
     """--pretrained: parameters (the EMA averages when the checkpoint has
-    them) and running statistics from a checkpoint of this package;
-    optimizer and counters stay fresh."""
+    them) and running statistics from a checkpoint of this package or a
+    JAX package ``.msgpack`` one (as the JAX package's warm start, which
+    takes ``ema_params or params`` and ``batch_stats``); optimizer and
+    counters stay fresh."""
     pre = load_checkpoint(path)
     pre_state = pre.get("state") if isinstance(pre, dict) else None
-    if not isinstance(pre_state, dict) or "model" not in pre_state:
-        raise ValueError(f"--pretrained expects a checkpoint written by this package's trainer: {path}")
-    weights = dict(pre_state["model"])
-    weights.update(pre_state.get("ema_params") or {})
-    state.model.load_state_dict(weights)
+    if not isinstance(pre_state, dict) or ("model" not in pre_state and pre.get("state_format") != FLAX_STATE):
+        raise ValueError(f"--pretrained expects a checkpoint written by this package's or the JAX package's trainer: {path}")
+    state.model.load_state_dict(model_weights(pre, state.model))
     if state.ema_params is not None:  # EMA restarts from the warm-started weights
         with torch.no_grad():
             for name, p in state.model.named_parameters():
@@ -704,16 +719,41 @@ def train_one_epoch(
     reach the step (and the grid) of a conditional model.
 
     The loss sum stays on the device; the host reads the device at print
-    and log points only. ``stats`` holds the mean loss and the epoch's
-    host time by phase (``phase_s``): ``dataloader`` (waiting for the next
+    and log points only. ``stats`` holds the mean loss, the epoch's host
+    time by phase (``phase_s``): ``dataloader`` (waiting for the next
     batch), ``device_step`` (issuing the step, and waiting for the device
-    at log points), ``logging``.
+    at log points), ``logging``, and ``host_syncs``, the epoch's reads of
+    device values.
+
+    ``config.scan_steps`` > 1 over a device-resident corpus runs the epoch
+    in chunks (:func:`_train_one_epoch_scan`); over a host-fed one it falls
+    back to this per-batch path, with the JAX package's message.
     """
     n_epoch = n_epoch if n_epoch is not None else config.epochs
     print_interval = config.print_interval if config.print_interval is not None else config.log_interval
+    if (config.scan_steps or 1) > 1:
+        if config.step_impl == "shard_map":
+            raise ValueError("--scan-steps needs the auto train step (drop --step-impl shard_map)")
+        if not hasattr(loader, "epoch_scan"):
+            print(
+                "--scan-steps: corpus is not device-resident (too large, multi-host, or "
+                "--data-placement host); falling back to per-batch dispatch"
+            )
+        else:
+            if config.log_images and epoch == 1:
+                print(
+                    "--scan-steps: reconstruction grids are skipped in scan mode "
+                    "(no per-batch host tensors); use the generate CLI for grids"
+                )
+            return _train_one_epoch_scan(
+                config=config, state=state, train_step=train_step, loader=loader, logger=logger, epoch=epoch,
+                epoch_seed=epoch_seed, lr_schedules=lr_schedules, n_samples_seen=n_samples_seen, n_epoch=n_epoch,
+                print_interval=print_interval, forwards=forwards,
+            )
     num_batches = len(loader)
     world_batch = loader.batch_size
     dev = next(model.parameters()).device
+    host_syncs = 0
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     t_last_log = time.time()
     steps_since_log = 0
@@ -746,39 +786,22 @@ def train_one_epoch(
             print("stimuli.shape =", tuple(batch.x.shape))
             print("loss.shape    =", tuple(lo.loss.shape) or "scalar")
             print("loss =", float(lo.loss))
+            host_syncs += 1
         if is_print or is_log:
+            host_syncs += 1
             step_now = state.step
             loss_f, kld_f, w_f = float(lo.loss), float(lo.kld_loss), float(lo.kld_weight)
             lr_now = {name: float(s(step_now - 1)) for name, s in lr_schedules.items()}
             timer.mark("logging")  # the wait above counts as device_step
             if is_print:
-                lr_print = next(iter(lr_now.values())) if lr_now else 0.0
-                print(
-                    f"Train Epoch:{epoch:4d}/{n_epoch}"
-                    f"  Step:{batch_idx + 1:4d}/{num_batches}"
-                    f"  Loss:[F: {loss_f:6.3f}, KL: {kld_f:6.3f}]"
-                    f"  LR: {lr_print:.5f}"
-                    f"  KL Weight: {w_f:.5f}"
-                )
+                _print_step(epoch, n_epoch, batch_idx, num_batches, loss_f, kld_f, lr_now, w_f)
             if is_log:
                 t_now = time.time()
                 throughput = steps_since_log * world_batch / max(t_now - t_last_log, 1e-9)
                 t_last_log, steps_since_log = t_now, 0
-                log_dict = {
-                    "training/stepwise/epoch": epoch,
-                    "training/stepwise/epoch_progress": epoch - 1 + (batch_idx + 1) / num_batches,
-                    "training/stepwise/n_samples_seen": n_samples_seen,
-                    "training/stepwise/train/throughput": throughput,
-                    "training/stepwise/train/loss": loss_f,
-                    "training/stepwise/train/loss_recon": float(lo.reconstruction_loss),
-                    "training/stepwise/train/loss_kld": kld_f,
-                    "training/stepwise/train/kld_weight": w_f,
-                    "training/stepwise/train/grad_norm": float(grad_norm),
-                }
-                for name, v in lr_now.items():
-                    log_dict[f"training/stepwise/lr-{name}"] = v
-                for phase, secs in timer.durations().items():
-                    log_dict[f"training/stepwise/duration/{phase}"] = secs
+                row = (loss_f, float(lo.reconstruction_loss), kld_f, w_f, float(grad_norm))
+                log_dict = _step_log(epoch, batch_idx, num_batches, n_samples_seen, throughput, row, lr_now,
+                                     timer.durations())
                 fold_phases()
                 timer.reset()
                 logger.log(log_dict, step=step_now)
@@ -791,8 +814,108 @@ def train_one_epoch(
                 forwards["grid"] += 1
 
     fold_phases()
-    stats = {"loss": float(loss_sum) / num_batches, "phase_s": epoch_phases}
+    stats = {"loss": float(loss_sum) / num_batches, "phase_s": epoch_phases, "host_syncs": host_syncs + 1}
     return stats, state, state.step, n_samples_seen
+
+
+def _train_one_epoch_scan(
+    *,
+    config: TrainConfig,
+    state,
+    train_step,
+    loader,
+    logger: MetricLogger,
+    epoch: int,
+    epoch_seed: int,
+    lr_schedules,
+    n_samples_seen: int,
+    n_epoch: int,
+    print_interval: int,
+    forwards: Optional[dict],
+):
+    """The scan-chunked train epoch (counterpart of the JAX package's
+    ``_train_one_epoch_scan``): the loader's ``epoch_scan`` issues
+    ``config.scan_steps`` steps per chunk and hands back their stacked
+    (loss, reconstruction, KL, KL weight, grad norm); the host reads them
+    once per chunk. The print and log points of the per-batch epoch fire
+    from the read rows; throughput is per chunk (the wall time of a
+    row inside a chunk carries no information). The mean loss is the
+    per-batch epoch's f32 sum, taken on the host."""
+    num_batches = len(loader)
+    world_batch = loader.batch_size
+    step0 = state.step
+    loss_sum = np.float32(0.0)
+    t_chunk_start = time.time()
+    timer, epoch_phases = PhaseTimer(), {}
+    host_syncs = 0
+    batch_idx = -1
+    timer.mark("device_step")
+    for state, ys in loader.epoch_scan(state, train_step, epoch, epoch_seed, chunk=config.scan_steps):
+        m = ys.cpu().numpy()  # the chunk's one host sync
+        host_syncs += 1
+        timer.mark("logging")
+        if forwards is not None:
+            forwards["train_steps"] += len(m)
+            forwards["train_forwards"] += len(m) * config.grad_accum
+        t_now = time.time()
+        throughput = len(m) * world_batch / max(t_now - t_chunk_start, 1e-9)
+        t_chunk_start = t_now
+        for row in m:
+            batch_idx += 1
+            loss_f, recon_f, kld_f, w_f, gn_f = (float(v) for v in row)
+            loss_sum = np.float32(loss_sum + row[0])
+            n_samples_seen += world_batch
+            step_now = step0 + batch_idx + 1
+            if epoch <= 1 and batch_idx == 0:
+                print(f"scan-chunked training: {config.scan_steps} steps/dispatch")
+                print("loss =", loss_f)
+            lr_now = {name: float(s(step_now - 1)) for name, s in lr_schedules.items()}
+            if batch_idx <= 2 or batch_idx % print_interval == 0 or batch_idx >= num_batches - 1:
+                _print_step(epoch, n_epoch, batch_idx, num_batches, loss_f, kld_f, lr_now, w_f)
+            if batch_idx % config.log_interval == 0:
+                phases = timer.durations()
+                for phase, secs in phases.items():
+                    epoch_phases[phase] = epoch_phases.get(phase, 0.0) + secs
+                timer.reset()
+                row = (loss_f, recon_f, kld_f, w_f, gn_f)
+                logger.log(_step_log(epoch, batch_idx, num_batches, n_samples_seen, throughput, row, lr_now, phases),
+                           step=step_now)
+        timer.mark("device_step")
+    for phase, secs in timer.durations().items():
+        epoch_phases[phase] = epoch_phases.get(phase, 0.0) + secs
+    stats = {"loss": float(loss_sum) / num_batches, "phase_s": epoch_phases, "host_syncs": host_syncs}
+    return stats, state, state.step, n_samples_seen
+
+
+def _print_step(epoch: int, n_epoch: int, batch_idx: int, num_batches: int, loss: float, kld: float, lr_now: dict,
+                kld_weight: float) -> None:
+    lr_print = next(iter(lr_now.values())) if lr_now else 0.0
+    print(
+        f"Train Epoch:{epoch:4d}/{n_epoch}"
+        f"  Step:{batch_idx + 1:4d}/{num_batches}"
+        f"  Loss:[F: {loss:6.3f}, KL: {kld:6.3f}]"
+        f"  LR: {lr_print:.5f}"
+        f"  KL Weight: {kld_weight:.5f}"
+    )
+
+
+def _step_log(epoch: int, batch_idx: int, num_batches: int, n_samples_seen: int, throughput: float, row: tuple,
+              lr_now: dict, phases: dict) -> dict:
+    """A log point's stepwise metrics: ``row`` is the step's (loss,
+    reconstruction, KL, KL weight, grad norm)."""
+    log_dict = {
+        "training/stepwise/epoch": epoch,
+        "training/stepwise/epoch_progress": epoch - 1 + (batch_idx + 1) / num_batches,
+        "training/stepwise/n_samples_seen": n_samples_seen,
+        "training/stepwise/train/throughput": throughput,
+    }
+    for key, v in zip(("loss", "loss_recon", "loss_kld", "kld_weight", "grad_norm"), row):
+        log_dict[f"training/stepwise/train/{key}"] = v
+    for name, v in lr_now.items():
+        log_dict[f"training/stepwise/lr-{name}"] = v
+    for phase, secs in phases.items():
+        log_dict[f"training/stepwise/duration/{phase}"] = secs
+    return log_dict
 
 
 @torch.no_grad()

@@ -252,7 +252,17 @@ def test_async_writer_surfaces_errors(tmp_path):
 
 
 def test_jax_checkpoints_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """A JAX package Orbax directory is refused with the reason (its arrays
+    need tensorstore); JAX ``.msgpack`` files load
+    (``tests/test_torch_jax_checkpoints.py``), and a missing one is missing."""
+    from midi_vae_tpu.io.checkpoint import save_checkpoint as jax_save_checkpoint
+
+    jmodel, variables = _jax_model_and_vars()
+    path = str(tmp_path / "checkpoint_latest.orbax")
+    jax_save_checkpoint(path, {"params": variables["params"]}, config={"arch": "FoldedVAE"}, epoch=1, backend="orbax")
+    with pytest.raises(ValueError, match="written by the JAX package.*tensorstore"):
+        ckpt.load_checkpoint(path)
+    with pytest.raises(FileNotFoundError):
         ckpt.load_checkpoint(str(tmp_path / "checkpoint_latest.msgpack"))
 
 

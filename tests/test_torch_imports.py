@@ -51,6 +51,18 @@ _VARIANT_MODULES = ("losses/tcvae.py", "models/mlp.py", "train/optim.py", "train
 _ARTIFACT_MODULES = ("interop/aot_export.py", "interop/torch_reference.py")
 
 
+# the data and utility modules (the native runtime's bindings, checkpoints, cache, probe)
+_DATA_UTILITY_MODULES = (
+    "core/backend_check.py", "core/compile_cache.py", "io/dcp_io.py", "io/flax_msgpack.py", "native/__init__.py",
+    "native/_build.py", "native/midiparse.py", "native/rrd.py",
+)
+
+
+def test_data_utility_modules_are_among_the_guarded_sources():
+    guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(_DATA_UTILITY_MODULES) <= guarded
+
+
 def test_inference_modules_are_among_the_guarded_sources():
     guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(_INFERENCE_MODULES) <= guarded

@@ -9,7 +9,9 @@ One group of four ranks (``parallel.launch.spawn`` of
   ``tests/test_torch_spmd.py`` (losses within 1e-6 relative, parameters
   rtol 1e-5 / atol 1e-7: only the per-shard seeds differ);
 - the train CLI with ``--num-devices 4 --mesh-slices 2``, then its resume
-  under ``--step-impl shard_map``, and ``train_prior --num-devices 4``.
+  under ``--step-impl shard_map``, and ``train_prior --num-devices 4``;
+- the train CLI with ``--checkpoint-backend orbax`` over the four ranks:
+  a resumed run bitwise equal to the uninterrupted one on every rank.
 
 The test process runs the same CLIs on one rank at the same global batch
 (4 × 8 = 32): the 4-rank run is that run up to summation order (train
@@ -73,9 +75,17 @@ def setup(tmp_path_factory):
                                 "shard_map", "--checkpoint", str(run_dir / "checkpoint_latest.pt")],
         "prior_argv": ["--checkpoint", vq_ckpt, "--num-devices", "4", "--out", str(tmp / "prior4.pt")] + PRIOR,
     }
-    payload = {"multislice_steps": {"auto": FLAT_SPEC, "spmd": _mlp_pinned_spec()}, "cli_runs": cli}
+    orbax_dir = tmp / "orbax"
+    orbax = LINES + ["--epochs", "2", "--batch-size", "8", "--num-devices", "4", "--checkpoint-backend", "orbax"]
+    orbax_runs = {
+        "first": orbax + ["--stop-after-epochs", "1", "--checkpoint", str(orbax_dir / "a" / "checkpoint_latest.orbax")],
+        "resumed": orbax + ["--async-checkpoint", "--checkpoint", str(orbax_dir / "a" / "checkpoint_latest.orbax")],
+        "straight": orbax + ["--async-checkpoint", "--checkpoint", str(orbax_dir / "b" / "checkpoint_latest.orbax")],
+    }
+    payload = {"multislice_steps": {"auto": FLAT_SPEC, "spmd": _mlp_pinned_spec()}, "cli_runs": cli,
+               "orbax_runs": orbax_runs}
     ranks = spawn(run_cases, WORLD, "cpu", list(payload), payload, timeout_s=300)
-    return {"tmp": tmp, "ranks": ranks, "vq_ckpt": vq_ckpt, "run_dir": run_dir}
+    return {"tmp": tmp, "ranks": ranks, "vq_ckpt": vq_ckpt, "run_dir": run_dir, "orbax_dir": orbax_dir}
 
 
 def result(setup, name):
@@ -163,3 +173,18 @@ def test_num_devices_two_starts_two_ranks_and_returns_rank_zero(setup, one_rank)
         [p.detach().reshape(-1) for p in want["state"].model.parameters()]), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(r["train"]["loss"], want["train"]["loss"], rtol=1e-4)
     _assert_metrics_match(r["final_test"], {k: v for k, v in want["final_test"].items() if k != "mig"})
+
+
+def test_orbax_resume_over_four_ranks_is_the_uninterrupted_run_bitwise(setup):
+    """Every rank writes its part of the directory (sync, then async); the
+    resume reads it on every rank and trains what the straight run trains."""
+    per_rank = result(setup, "orbax_runs")
+    for out in per_rank:
+        assert out["resumed"]["start_epoch"] == 2 and out["resumed"]["total_step"] == out["straight"]["total_step"]
+        assert torch.equal(out["resumed"]["params"], out["straight"]["params"])
+        assert torch.equal(out["resumed"]["params"], per_rank[0]["resumed"]["params"])
+        assert out["resumed"]["final_test"] == out["straight"]["final_test"]
+    for run in ("a", "b"):
+        ckpt = setup["orbax_dir"] / run / "checkpoint_latest.orbax"
+        assert sorted(os.listdir(ckpt)) == ["midi_vae_meta.json", "state", "structure.pt"]
+        assert not os.path.exists(str(ckpt) + ".staging")

@@ -15,6 +15,7 @@ the same model served against itself bitwise.
 import http.client
 import io
 import json
+import os
 import sys
 import threading
 import time
@@ -32,6 +33,7 @@ from midi_vae_tpu.serving.wire import npy_loads as jax_npy_loads
 from midi_vae_tpu_torch.cli.generate import _load_model_and_state
 from midi_vae_tpu_torch.io.checkpoint import save_checkpoint
 from midi_vae_tpu_torch.models.registry import build_model
+from midi_vae_tpu_torch.ops.cuda_lib import BUILD_DIR_ENV
 from midi_vae_tpu_torch.serving import server as server_mod
 from midi_vae_tpu_torch.serving.batcher import MicroBatcher, _bucket
 from midi_vae_tpu_torch.serving.client import ServingClient, ServingError
@@ -467,21 +469,26 @@ def test_loader_prefers_ema_weights(tmp_path):
         (lambda p: server_mod.cli(["--artifact", "dir", "--prior", "x", "--cpu"]), ValueError,
          "carry their prior from export time"),
         (lambda p: server_mod.cli(["--checkpoint", p, "--prior", "x", "--cpu"]), ValueError, "needs a VQ-VAE"),
-        (lambda p: server_mod.cli(["--checkpoint", p, "--compilation-cache", "/c", "--cpu"]), NotImplementedError,
-         "item 17e\\b"),
+        (lambda p: server_mod.cli(["--checkpoint", p, "--compilation-cache", os.path.join(os.path.dirname(p), "c"),
+                                   "--prior", "x", "--cpu"]), ValueError, "needs a VQ-VAE"),
         (lambda p: server_mod.InferenceService(p, prior_path="x", device="cpu"), ValueError, "needs a VQ-VAE"),
     ],
     ids=["serve_artifact", "serve_prior", "cli_artifact", "cli_prior", "cli_compilation_cache", "service_prior"],
 )
-def test_unported_serving_options_raise_with_their_roadmap_item(tmp_path, call, error, match):
-    """--compilation-cache is not ported; --artifact and --prior are, and
-    refuse what the JAX server refuses: --prior beside --artifact (the
-    artifact's prior is baked at export; ``tests/test_torch_aot_export.py``
-    serves artifacts), and --prior on this Gaussian checkpoint."""
+def test_unported_serving_options_raise_with_their_roadmap_item(tmp_path, monkeypatch, request, call, error, match):
+    """--compilation-cache, --artifact and --prior are ported, and refuse
+    what the JAX server refuses: --prior beside --artifact (the artifact's
+    prior is baked at export; ``tests/test_torch_aot_export.py`` serves
+    artifacts), and --prior on this Gaussian checkpoint, also after
+    --compilation-cache has pointed the build directories into its DIR."""
+    for env in (BUILD_DIR_ENV, "TRITON_CACHE_DIR", "TORCHINDUCTOR_CACHE_DIR"):
+        monkeypatch.delenv(env, raising=False)
     path = str(tmp_path / "c.pt")
     _write_checkpoint(path, dtype=torch.float32)
     with pytest.raises(error, match=match):
         call(path)
+    if request.node.callspec.id == "cli_compilation_cache":
+        assert os.environ["TRITON_CACHE_DIR"] == str(tmp_path / "c" / "triton")
 
 
 def test_serve_starts_on_port_0_and_refuses_without_a_gpu(tmp_path):
@@ -500,3 +507,21 @@ def test_serve_starts_on_port_0_and_refuses_without_a_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         server_mod.cli(["--checkpoint", path, "--skip-backend-check"])
     assert jax.default_backend() == "cpu"
+
+
+def test_cli_probes_the_gpu_before_it_binds(tmp_path, monkeypatch, capsys):
+    """Without --cpu or --skip-backend-check the server runs the backend
+    probe first and exits 1, as the JAX server does, when it fails."""
+    from midi_vae_tpu_torch.core import backend_check
+
+    path = str(tmp_path / "c.pt")
+    _write_checkpoint(path, dtype=torch.float32)
+    calls = []
+    monkeypatch.setattr(backend_check, "backend_alive", lambda *a, **k: calls.append(1) or False)
+    with pytest.raises(SystemExit) as info:
+        server_mod.cli(["--checkpoint", path])
+    assert info.value.code == 1 and calls == [1]
+    assert "FATAL: CUDA backend unreachable" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="needs a VQ-VAE"):  # --cpu skips the probe
+        server_mod.cli(["--checkpoint", path, "--cpu", "--prior", "x"])
+    assert calls == [1]

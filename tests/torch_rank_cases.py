@@ -267,3 +267,19 @@ def cli_runs(rank, spec):
     out["resumed"] = run_summary(train_cli.cli(spec["resume_argv"]))
     out["prior"] = train_prior.cli(spec["prior_argv"])
     return gather_to_rank0(out)
+
+
+@case
+def orbax_runs(rank, spec):
+    """The ``orbax`` backend inside the group: a run stopped after one
+    epoch, its resume, and the uninterrupted run, every rank writing its
+    part of each checkpoint directory (the resume and the straight run
+    asynchronously); every rank's parameters and counters."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+
+    out = {}
+    for name in ("first", "resumed", "straight"):
+        r = train_cli.cli(spec[name])
+        out[name] = {"params": run_summary(r)["params"], "total_step": r["total_step"], "start_epoch": r["start_epoch"],
+                     "final_test": r["final_test"]}
+    return gather_to_rank0(out)
