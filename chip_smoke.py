@@ -152,11 +152,17 @@ From the repository root. It
    epoch resumed for a second against two straight epochs, bitwise; the
    JAX package's ``.msgpack`` fixture evaluated, reconstructed and served
    on the card against the CPU (1e-4) and a ``--pretrained`` run from it;
+   the same run's JAX Orbax directory read without JAX (every leaf bitwise
+   the ``.msgpack`` fixture's; the load's time and the zstd decoder's MB/s
+   on the host), then evaluated, reconstructed, served and warm-started
+   from as the ``.msgpack`` was; ``--allow-download-dataset``'s MNIST
+   download from a loopback server (files byte-equal, datasets equal);
 15. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
    accumulated run, ``variant_launches`` for every run of item 10,
    ``model_variant_launches`` for item 11, ``artifact_launches`` for item
    12, ``parallel_launches`` for item 13, ``data_launches`` for the
-   ``rrd:`` epoch of item 14), the card line again, and as the last line
+   ``rrd:`` epoch and the ``--pretrained`` Orbax epoch of item 14), the
+   card line again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
@@ -2414,6 +2420,9 @@ STREAM_ROLLS = 16384  # rows of the streamed RRD corpus, 128×128×1 uint8 each 
 SCAN_CHUNK = 16
 CACHE_ROLLS = 1024  # the small corpus of the --compilation-cache processes
 JAX_FIXTURE = "tests/fixtures/jax_folded_lines28.msgpack"
+JAX_ORBAX_FIXTURE = "tests/fixtures/jax_folded_lines28.orbax"  # the same state, saved by the JAX Orbax backend
+READER_ROUNDS = 5
+MNIST_SERVED = {"train": 1024, "t10k": 256}  # images of each split the loopback server hands out
 
 
 def write_stream_corpus(path: Path, dev, card: str) -> None:
@@ -2716,19 +2725,21 @@ def orbax_resume(root: Path, models: Path, card: str) -> dict:
     return total
 
 
-def jax_checkpoint_on_the_card(root: Path, models: Path, dev, card: str) -> dict:
-    """The JAX package's fixture checkpoint on the card: ``evaluate`` against
-    the CPU (1e-4), ``generate --mode reconstruct`` against the CPU, a
-    ``serve`` service's reconstruction against the CPU's, and a
-    ``--pretrained`` warm start. Returns the warm start's launches."""
+def jax_checkpoint_on_the_card(root: Path, models: Path, dev, card: str, fixture: str = JAX_FIXTURE) -> dict:
+    """A JAX package fixture checkpoint (``.msgpack`` or Orbax) on the
+    card: ``evaluate`` against the CPU (1e-4), ``generate --mode
+    reconstruct`` against the CPU, a ``serve`` service's reconstruction
+    against the CPU's, and a fused ``--pretrained`` warm start whose
+    launches its forwards predict. Returns the warm start's launches."""
     from midi_vae_tpu_torch.cli import evaluate, generate
     from midi_vae_tpu_torch.cli import train as train_cli
     from midi_vae_tpu_torch.serving.server import InferenceService
 
     from midi_vae_tpu_torch.models import vae
 
-    fixture = str(root / JAX_FIXTURE)
-    out = models / "jax_fixture"
+    kind = Path(fixture).suffix
+    fixture = str(root / fixture)
+    out = models / f"jax_fixture{kind}"
     out.mkdir(parents=True, exist_ok=True)
     # the evaluate and reconstruct forwards sample z, from a generator whose
     # stream differs between the card and the CPU: both take z = mu here
@@ -2746,9 +2757,9 @@ def jax_checkpoint_on_the_card(root: Path, models: Path, dev, card: str) -> dict
     finally:
         vae.VanillaVAE.reparameterize = draw
     errs = {k: abs(res["card"][k] - v) / max(abs(v), 1e-12) for k, v in res["cpu"].items()}
-    check(max(errs.values()) <= 1e-4, f"evaluate of the JAX checkpoint: card against CPU {errs}")
+    check(max(errs.values()) <= 1e-4, f"evaluate of the JAX {kind} checkpoint: card against CPU {errs}")
     gen_err = float(np.max(np.abs(imgs["card"] - imgs["cpu"])))
-    check(gen_err <= 1e-4, f"generate --mode reconstruct of the JAX checkpoint: card against CPU {gen_err}")
+    check(gen_err <= 1e-4, f"generate --mode reconstruct of the JAX {kind} checkpoint: card against CPU {gen_err}")
     x = (np.random.default_rng(1).random((4, 28, 28, 1)) < 0.1).astype(np.float32) - 0.5
     services = [InferenceService(fixture), InferenceService(fixture, device="cpu")]
     try:
@@ -2756,20 +2767,116 @@ def jax_checkpoint_on_the_card(root: Path, models: Path, dev, card: str) -> dict
     finally:
         for s in services:
             s.close()
-    check(srv_err <= 1e-4, f"the served JAX checkpoint: card against CPU {srv_err}")
+    check(srv_err <= 1e-4, f"the served JAX {kind} checkpoint: card against CPU {srv_err}")
     ops.reset_launch_counts()
     r = train_cli.cli(["--dataset", "vae-lines-synthetic", "--transform-type", "noaug", "--image-size", "28",
                        "--model", "FoldedVAE", "--fold", "4", "--hidden-dims", "8", "16", "--n_features", "4",
                        "--fused", "--epochs", "1", "--batch-size", "128", "--seed", "0", "--pretrained", fixture,
-                       "--ema-decay", "0.9", "--models-dir", str(models)])
+                       "--ema-decay", "0.9", "--models-dir", str(models), "--run-name", f"pretrained-{kind[1:]}"])
     counts = ops.launch_counts()
     check(counts == expected_cli_launches(r, 1) and r["total_step"] == r["steps_per_epoch"],
-          f"--pretrained x.msgpack run: launches {counts}, total_step {r['total_step']}")
-    log(f"  JAX .msgpack on the card (z = mu): evaluate within {max(errs.values()):.2e} (relative) of the CPU, generate "
+          f"--pretrained x{kind} run: launches {counts}, total_step {r['total_step']}")
+    log(f"  JAX {kind} on the card (z = mu): evaluate within {max(errs.values()):.2e} (relative) of the CPU, generate "
         f"reconstruct within {gen_err:.2e}, served reconstruction within {srv_err:.2e}; --pretrained run "
         f"{r['history'][0]['train']['throughput']:.1f} samples/s, test cross-entropy "
-        f"{r['final_test']['cross-entropy']:.6f} [{card}]")
+        f"{r['final_test']['cross-entropy']:.6f}; launches {counts} [{card}]")
     return counts
+
+
+def _same_leaves(got, want, path: str = "state") -> int:
+    """Check two checkpoint trees leaf for leaf, bitwise; returns the leaves."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want), f"{path}: keys differ")
+        return sum(_same_leaves(got[k], want[k], f"{path}/{k}") for k in want)
+    if isinstance(want, np.ndarray):
+        check(isinstance(got, np.ndarray) and got.dtype == want.dtype and got.shape == want.shape
+              and got.tobytes() == want.tobytes(), f"{path} differs")
+        return 1
+    check(type(got) is type(want) and got == want, f"{path} differs")
+    return 1
+
+
+def orbax_reader(root: Path, card: str) -> None:
+    """The JAX Orbax fixture read without JAX (the port's zstd, OCDBT and
+    zarr readers): every leaf bitwise the ``.msgpack`` fixture's, then the
+    load's time (median of ``READER_ROUNDS``) and the zstd decoder's rate
+    over the fixture's chunks on this machine's host CPU."""
+    from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
+    from midi_vae_tpu_torch.io.ocdbt import OcdbtStore
+    from midi_vae_tpu_torch.native import zstd
+
+    orbax = str(root / JAX_ORBAX_FIXTURE)
+    got, want = load_checkpoint(orbax), load_checkpoint(str(root / JAX_FIXTURE))
+    check(got["state_format"] == want["state_format"] == "flax", "the Orbax fixture is not read as a flax state")
+    n_leaves = _same_leaves(got["state"], want["state"])
+    check({k: v for k, v in got.items() if k != "state"} == {k: v for k, v in want.items() if k != "state"},
+          "the Orbax fixture's metadata differs from the .msgpack fixture's")
+    load_s = statistics.median(timed(lambda: load_checkpoint(orbax), READER_ROUNDS))
+    store = OcdbtStore(str(root / JAX_ORBAX_FIXTURE / "state"))
+    frames = [store.read(k) for k in store.list() if not k.endswith("/.zarray")]
+    decoded = sum(len(zstd.decompress(f)) for f in frames)
+    decode_s = statistics.median(timed(lambda: [zstd.decompress(f) for f in frames], READER_ROUNDS))
+    log(f"  JAX Orbax fixture: {n_leaves} leaves bitwise equal to the .msgpack fixture's; load "
+        f"{load_s * 1e3:.3f} ms (median of {READER_ROUNDS}); zstd {len(frames)} chunks, "
+        f"{sum(map(len, frames))} -> {decoded} bytes in {decode_s * 1e3:.3f} ms = {decoded / decode_s / 1e6:.1f} MB/s "
+        f"(host CPU) [{card}]")
+
+
+def _idx_gz(array: np.ndarray) -> bytes:
+    import gzip
+    import struct
+
+    header = struct.pack(">I", 0x0800 | array.ndim) + struct.pack(">" + "I" * array.ndim, *array.shape)
+    return gzip.compress(header + array.astype(np.uint8).tobytes(), mtime=0)
+
+
+def mnist_download(root: Path, card: str) -> None:
+    """``fetch_dataset("mnist", download=True)`` from a loopback HTTP server
+    (127.0.0.1) handing out MNIST-format files written here: the files land
+    byte-equal to what was served and the datasets load with its values."""
+    import functools
+    import http.server
+
+    from midi_vae_tpu_torch.data import fetch, sources
+
+    served, data_dir = root / "build" / "served", root / "build" / "downloaded"
+    for d in (served, data_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    (served / "mnist").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    arrays = {}
+    for prefix, n in MNIST_SERVED.items():
+        arrays[prefix] = rng.integers(0, 256, (n, 28, 28), dtype=np.uint8), rng.integers(0, 10, n, dtype=np.uint8)
+        (served / "mnist" / f"{prefix}-images-idx3-ubyte.gz").write_bytes(_idx_gz(arrays[prefix][0]))
+        (served / "mnist" / f"{prefix}-labels-idx1-ubyte.gz").write_bytes(_idx_gz(arrays[prefix][1]))
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Quiet, directory=str(served)))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    urls = sources._MNIST_URLS
+    sources._MNIST_URLS = [f"http://127.0.0.1:{httpd.server_address[1]}/mnist/"]
+    try:
+        t0 = time.perf_counter()
+        train, _, test, _ = fetch.fetch_dataset("mnist", root=str(data_dir), download=True)
+        seconds = time.perf_counter() - t0
+    finally:
+        sources._MNIST_URLS = urls
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    for name in sources._MNIST_FILES:
+        check((data_dir / "MNIST" / "raw" / name).read_bytes() == (served / "mnist" / name).read_bytes(),
+              f"downloaded {name} differs from the served file")
+    for ds, prefix in ((train, "train"), (test, "t10k")):
+        images, labels = arrays[prefix]
+        check(np.array_equal(ds.images, images[..., None]) and np.array_equal(ds.labels, labels.astype(np.int64)),
+              f"the downloaded MNIST {prefix} split differs from the served arrays")
+    log(f"  --allow-download-dataset: MNIST ({len(train)} train, {len(test)} test) from a loopback server, "
+        f"files byte-equal, datasets equal, in {seconds:.3f} s [{card}]")
 
 
 def data_phase(dev, root: Path, card: str) -> dict:
@@ -2777,16 +2884,17 @@ def data_phase(dev, root: Path, card: str) -> dict:
     epoch of the flagship config through the native loader, the same
     corpus device-resident with and without ``--scan-steps``, the native
     parser against Python, ``--compilation-cache`` across two processes,
-    the backend probe and the server, sharded checkpoints, a JAX
-    ``.msgpack`` checkpoint and the ``data.stats`` CLI. Returns the
-    stream run's launches and the phase's total."""
+    the backend probe and the server, sharded checkpoints, the JAX
+    ``.msgpack`` and Orbax checkpoints, the dataset download and the
+    ``data.stats`` CLI. Returns the launches of the stream run and of the
+    ``--pretrained`` run from the Orbax fixture."""
     from midi_vae_tpu_torch.data import stats
     from midi_vae_tpu_torch.native import _build
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     built = _build.build()
-    check(set(built) == {"rollloader", "midiparse"}, f"host libraries {sorted(built)}")
+    check(set(built) == {"rollloader", "midiparse", "zstd"}, f"host libraries {sorted(built)}")
     log(f"  host C++ libraries in {time.perf_counter() - t0:.2f} s: " + ", ".join(
         f"{n} {'found built' if b.seconds is None else f'g++ {b.seconds:.2f} s'}" for n, b in built.items()))
     models = root / "build" / "data_models"
@@ -2804,8 +2912,16 @@ def data_phase(dev, root: Path, card: str) -> dict:
     probe_and_serve(Path(r["config"]["checkpoint_path"]), root, dev, card)
     add_counts(total, orbax_resume(root, models, card))
     add_counts(total, jax_checkpoint_on_the_card(root, models, dev, card))
+    t0 = time.perf_counter()
+    orbax_reader(root, card)
+    orbax_counts = jax_checkpoint_on_the_card(root, models, dev, card, fixture=JAX_ORBAX_FIXTURE)
+    add_counts(total, orbax_counts)
+    mnist_download(root, card)
+    log(f"  JAX Orbax checkpoint and download checks {time.perf_counter() - t0:.1f} s [{card}]")
     log(f"  data phase {time.perf_counter() - t_phase:.1f} s; launches over the phase {total} [{card}]")
-    return stream_counts
+    data_counts = dict(stream_counts)
+    add_counts(data_counts, orbax_counts)
+    return data_counts
 
 
 # ==================================================================== main
@@ -2854,7 +2970,8 @@ def main() -> int:
     artifact_counts = artifact_phase(dev, root, card)
     log("multi-GPU training (one rank over NCCL, two ranks over gloo, the CLI):")
     parallel_counts = parallel_phase(dev, root, card, flagship_window)
-    log("data and utilities (rrd: stream, --scan-steps, native parser, caches, probe, orbax, JAX checkpoints):")
+    log("data and utilities (rrd: stream, --scan-steps, native parser, caches, probe, orbax, JAX checkpoints, "
+        "download):")
     data_counts = data_phase(dev, root, card)
 
     kernels = []

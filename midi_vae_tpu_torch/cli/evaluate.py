@@ -28,7 +28,9 @@ from typing import Any
 
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Evaluate a trained VAE checkpoint")
-    parser.add_argument("--checkpoint", type=str, required=True, help="Checkpoint to load: a .pt file of this package")
+    parser.add_argument("--checkpoint", type=str, required=True,
+                        help="Checkpoint to load: this package's .pt file or .orbax directory, or a JAX "
+                             "package .msgpack file or Orbax directory")
     parser.add_argument("--partition", choices=("test", "val", "train", "all"), default="test",
                         help="Dataset partition(s) to sweep; 'train' uses eval-condition transforms."
                              " Default: %(default)s")

@@ -40,7 +40,9 @@ from midi_vae_tpu_torch.core.device import DeviceLike, resolve_device
 
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Sample / reconstruct / interpolate from a trained VAE")
-    parser.add_argument("--checkpoint", type=str, required=True, help="Checkpoint to load: a .pt file of this package")
+    parser.add_argument("--checkpoint", type=str, required=True,
+                        help="Checkpoint to load: this package's .pt file or .orbax directory, or a JAX "
+                             "package .msgpack file or Orbax directory")
     parser.add_argument("--mode", choices=("sample", "reconstruct", "interpolate", "traverse", "continue"), default="sample")
     parser.add_argument("-n", "--num-samples", type=int, default=16)
     parser.add_argument("--steps", type=int, default=8, help="Interpolation steps")
@@ -82,7 +84,7 @@ def _load_model_and_state(checkpoint_path: str, use_ema: bool = True, payload=No
     (the EMA averages unless ``use_ema=False``); returns ``(model, config,
     image_size, channels, dataset)``. ``payload``: an already loaded
     checkpoint. The checkpoint may be the port's or a JAX package
-    ``.msgpack`` one (its flax weights mapped onto the model). The model computes in f32 and draws z plainly, as the JAX
+    ``.msgpack`` or Orbax one (its flax weights mapped onto the model). The model computes in f32 and draws z plainly, as the JAX
     package's inference model does, whatever dtype trained it."""
     from midi_vae_tpu_torch.data.registry import image_dataset_sizes
     from midi_vae_tpu_torch.io.checkpoint import has_ema, load_checkpoint, model_weights

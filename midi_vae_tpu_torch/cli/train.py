@@ -16,7 +16,8 @@ more GPUs than are visible raises. ``--multihost`` joins the ranks
 loader, ``--scan-steps N`` runs a device-resident epoch in chunks of N
 steps, ``--checkpoint-backend orbax`` writes sharded
 ``torch.distributed.checkpoint`` directories, ``--pretrained`` also takes
-a JAX package ``.msgpack`` checkpoint, and ``--compilation-cache DIR``
+a JAX package checkpoint (a ``.msgpack`` file or an Orbax directory), and
+``--compilation-cache DIR``
 keeps every kernel build in DIR. ``--gpu``/``--cpu-workers``/``--no-cuda``
 are accepted and inert, as in the JAX package.
 
@@ -108,7 +109,7 @@ def get_parser() -> argparse.ArgumentParser:
                        help="Warm-start model parameters from an existing checkpoint; optimizer "
                             "state and counters start fresh (fine-tuning — unlike --checkpoint, "
                             "which resumes). EMA weights are preferred when the checkpoint has "
-                            "them. A JAX package .msgpack checkpoint works too; for the PyTorch "
+                            "them. A JAX package checkpoint (.msgpack or Orbax directory) works too; for the PyTorch "
                             "reference's state_dict use interop/torch_reference.py.")
     group.add_argument("--n_features", "--latent-dim", dest="n_features", type=int, default=10,
                        help="Latent dimensionality. Default: %(default)s")

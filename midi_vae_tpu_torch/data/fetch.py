@@ -5,8 +5,9 @@
 - folder datasets (``sageev*``, ``vae-lines*``, ``midi*``), the
   ``*-synthetic`` ones and ``rrd:PATH`` streams split 80/20 train/test
   with a seeded permutation (a stream's splits are lazy row subsets);
-- MNIST and SVHN use their own train/test files, read from local disk
-  only (the port downloads nothing);
+- MNIST and SVHN use their own train/test files; with ``download`` the
+  files missing are fetched first (``data/sources.py``
+  ``download_mnist``/``download_svhn``);
 - val is test unless prototyping, where val is a K-fold slice of train
   under the eval transform.
 
@@ -29,6 +30,8 @@ from midi_vae_tpu_torch.core.device import DeviceLike
 from midi_vae_tpu_torch.data.registry import TRAIN_TEST_RATIO
 from midi_vae_tpu_torch.data.sources import (
     ArrayDataset,
+    download_mnist,
+    download_svhn,
     load_image_folder,
     load_midi_folder,
     load_mnist,
@@ -117,8 +120,8 @@ def fetch_image_dataset(
 ) -> Tuple[ArrayDataset, Optional[ArrayDataset], ArrayDataset]:
     """(train, val-or-None, test) for a dataset name. ``device`` is where the
     on-device generator of ``pianoroll-synthetic`` runs. MNIST and SVHN are
-    read from local files; ``download`` raises when they are missing (the
-    port downloads nothing)."""
+    read from local files; when they are missing and ``download`` is set,
+    they are downloaded first."""
     root = root or os.environ.get("MIDI_VAE_DATA_DIR", os.path.expanduser("~/Datasets"))
     if dataset in SYNTHETIC_SIZES or dataset.startswith(("sageev", "vae-lines", "midi")):
         if dataset in SYNTHETIC_SIZES:
@@ -139,18 +142,23 @@ def fetch_image_dataset(
             transform_eval
         )
     if dataset in ("mnist", "svhn"):
-        try:
+        svhn_root = os.path.join(root, dataset)
+
+        def load():
             if dataset == "mnist":
-                train, test = load_mnist(root, train=True), load_mnist(root, train=False)
+                return load_mnist(root, train=True), load_mnist(root, train=False)
+            return load_svhn(svhn_root, "train"), load_svhn(svhn_root, "test")
+
+        try:
+            train, test = load()
+        except FileNotFoundError:
+            if not download:
+                raise
+            if dataset == "mnist":
+                download_mnist(root)
             else:
-                train, test = load_svhn(os.path.join(root, dataset), "train"), load_svhn(os.path.join(root, dataset), "test")
-        except FileNotFoundError as e:
-            if download:
-                raise NotImplementedError(
-                    f"{e}; --allow-download-dataset: the PyTorch package downloads nothing "
-                    "(ROADMAP Queue 1 item 9), place the files under --data-dir"
-                ) from e
-            raise
+                download_svhn(svhn_root)
+            train, test = load()
         return train.with_transform(transform_train), None, test.with_transform(transform_eval)
     raise ValueError("Unrecognised dataset: {}".format(dataset))
 

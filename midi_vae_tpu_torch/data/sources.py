@@ -13,8 +13,9 @@ loads in the other. An RRD file can also be streamed without loading it
 (:class:`RRDStreamDataset`, the ``rrd:PATH`` dataset names): its splits
 stay lazy row subsets, and the native threaded loader
 (``native/rollloader.cc``) gathers each batch from the mapped file.
-Downloads are not ported (ROADMAP Queue 1 item 9; there is no network
-where the port runs).
+:func:`download_mnist` and :func:`download_svhn` fetch the MNIST and SVHN
+files from the JAX package's (torchvision's) URLs for
+``--allow-download-dataset``.
 """
 
 from __future__ import annotations
@@ -300,3 +301,67 @@ def load_svhn(root: str, split: str) -> ArrayDataset:
     labels = mat["y"].astype(np.int64).squeeze()
     labels[labels == 10] = 0  # SVHN's label 10 is digit 0
     return ArrayDataset(images=images, labels=labels, name="svhn")
+
+
+_MNIST_URLS = [
+    "https://ossci-datasets.s3.amazonaws.com/mnist/",
+    "http://yann.lecun.com/exdb/mnist/",
+]
+_MNIST_FILES = [
+    "train-images-idx3-ubyte.gz",
+    "train-labels-idx1-ubyte.gz",
+    "t10k-images-idx3-ubyte.gz",
+    "t10k-labels-idx1-ubyte.gz",
+]
+_SVHN_URL = "http://ufldl.stanford.edu/housenumbers/"
+_SVHN_FILES = ["train_32x32.mat", "test_32x32.mat"]
+
+
+def _fetch(url: str, dest: str) -> None:
+    """``url`` into ``dest`` through ``dest.tmp`` renamed into place, so an
+    interrupted transfer never leaves a file a later run takes as whole."""
+    import urllib.request
+
+    tmp = dest + ".tmp"
+    try:
+        urllib.request.urlretrieve(url, tmp)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    os.rename(tmp, dest)
+
+
+def download_mnist(root: str) -> None:
+    """Fetch the MNIST IDX files missing from ``root/MNIST/raw``, each from
+    the first of ``_MNIST_URLS`` that serves it; ``RuntimeError`` naming
+    the file when none does."""
+    raw = os.path.join(root, "MNIST", "raw")
+    os.makedirs(raw, exist_ok=True)
+    for fname in _MNIST_FILES:
+        dest = os.path.join(raw, fname)
+        if os.path.isfile(dest):
+            continue
+        last_err = None
+        for base in _MNIST_URLS:
+            try:
+                _fetch(base + fname, dest)
+                break
+            except OSError as e:
+                last_err = e
+        else:
+            raise RuntimeError(f"Could not download {fname}: {last_err}")
+
+
+def download_svhn(root: str) -> None:
+    """Fetch the SVHN cropped-digit ``.mat`` files missing from ``root``
+    from ``_SVHN_URL``; ``RuntimeError`` naming the file when it fails."""
+    os.makedirs(root, exist_ok=True)
+    for fname in _SVHN_FILES:
+        dest = os.path.join(root, fname)
+        if os.path.isfile(dest):
+            continue
+        try:
+            _fetch(_SVHN_URL + fname, dest)
+        except OSError as e:
+            raise RuntimeError(f"Could not download {fname} from {_SVHN_URL}: {e}") from e

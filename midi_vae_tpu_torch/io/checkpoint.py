@@ -13,9 +13,9 @@ format). ``--checkpoint-backend orbax`` writes a sharded directory
 instead (``io/dcp_io.py``: ``torch.distributed.checkpoint``, every rank
 writing its part), ``checkpoint_latest.orbax`` and ``best_model.orbax``.
 
-:func:`load_checkpoint` reads all three kinds: the port's files, the
+:func:`load_checkpoint` reads all four kinds: the port's files, the
 port's directories, and the JAX package's ``.msgpack`` checkpoints
-(``io/flax_msgpack.py``). A JAX payload keeps its flax ``state``
+(``io/flax_msgpack.py``) and Orbax directories (``io/orbax_read.py``). A JAX payload keeps its flax ``state``
 (``params``, ``batch_stats``, ``opt_state``, ``step``, ``ema_params``)
 and is marked ``"state_format": "flax"``; :func:`model_weights` maps it
 onto a model of the port (``interop/from_jax.py``).
@@ -94,9 +94,9 @@ def save_checkpoint(
 
 def load_checkpoint(checkpoint_path: str) -> Dict[str, Any]:
     """Read a checkpoint (tensors on the CPU): a file or directory of
-    :func:`save_checkpoint`, or a JAX package ``.msgpack`` file (its flax
-    state kept, ``"state_format": "flax"``). A directory is read by every
-    rank of a process group together."""
+    :func:`save_checkpoint`, or a JAX package ``.msgpack`` file or Orbax
+    directory (its flax state kept, ``"state_format": "flax"``). A
+    directory is read by every rank of a process group together."""
     from midi_vae_tpu_torch.io.dcp_io import is_orbax_checkpoint, load_checkpoint_dcp
 
     if is_orbax_checkpoint(checkpoint_path):

@@ -18,9 +18,11 @@ The JAX package's semantics are kept: the new checkpoint is built in
 ``<path>.old`` while a complete replacement exists; a load falls back to
 ``.old`` when ``<path>`` is missing), :class:`DCPAsyncWriter` keeps at
 most one write in flight and swaps on the next ``save`` or ``wait``, and
-:func:`is_orbax_checkpoint` recognises such a directory. A directory the
-JAX package's Orbax wrote holds tensorstore arrays, which the port cannot
-read: loading one raises and says so.
+:func:`is_orbax_checkpoint` recognises such a directory, and one the JAX
+package's Orbax wrote (its sidecar has no ``"format"``), which
+:func:`load_checkpoint_dcp` hands to ``io/orbax_read.py``: its OCDBT
+store of zarr arrays is read with the port's own zstd, OCDBT and zarr
+readers.
 
 Over several ranks the checkpoint's collectives run on a gloo group of
 their own (made on first use, on every rank), so an asynchronous write
@@ -222,8 +224,9 @@ def is_orbax_checkpoint(checkpoint_path: str) -> bool:
 
 def load_checkpoint_dcp(checkpoint_path: str) -> Dict[str, Any]:
     """The payload of a checkpoint directory (tensors on the CPU); every rank
-    of a process group calls it. Raises for a directory the JAX package's
-    Orbax wrote."""
+    of a process group calls it. A directory the JAX package's Orbax wrote
+    is read by ``io/orbax_read.py`` (its flax state, ``"state_format":
+    "flax"``)."""
     import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint import FileSystemReader
 
@@ -235,11 +238,9 @@ def load_checkpoint_dcp(checkpoint_path: str) -> Dict[str, Any]:
     with open(os.path.join(resolved, _META_NAME)) as f:
         payload: Dict[str, Any] = json.load(f)
     if payload.pop("format", None) != FORMAT:
-        raise ValueError(
-            f"{resolved} is an Orbax checkpoint written by the JAX package: its arrays are tensorstore "
-            "(zarr/OCDBT) files, which the PyTorch package cannot read (it has no tensorstore). Load a "
-            ".msgpack checkpoint of that run instead (JAX --checkpoint-backend msgpack)."
-        )
+        from midi_vae_tpu_torch.io.orbax_read import load_jax_orbax
+
+        return load_jax_orbax(resolved)
     state_dir = os.path.join(resolved, "state")
     metadata = FileSystemReader(state_dir).read_metadata()
     tensors = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)

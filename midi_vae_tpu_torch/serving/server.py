@@ -576,7 +576,7 @@ def cli(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(description="Serve a trained VAE checkpoint over HTTP")
     source = parser.add_mutually_exclusive_group(required=True)
     source.add_argument("--checkpoint", help="Training checkpoint (this package's .pt or .orbax directory, "
-                                             "or a JAX package .msgpack)")
+                                             "or a JAX package .msgpack or Orbax directory)")
     source.add_argument("--artifact", metavar="DIR",
                         help="Exported artifact directory (interop/aot_export.py): serve its torch.export "
                              "programs, no model code or checkpoint needed")

@@ -30,7 +30,8 @@ native loader; ``--scan-steps N`` runs a device-resident train epoch in
 chunks of N steps with one host read per chunk (the per-batch epoch's
 steps exactly); ``--checkpoint-backend orbax`` writes sharded directories
 (``io/dcp_io.py``) and a resume detects either format and keeps writing
-it; ``--pretrained`` takes a JAX package ``.msgpack`` checkpoint too;
+it; ``--pretrained`` takes a JAX package checkpoint too (``.msgpack`` or
+Orbax directory);
 ``--compilation-cache DIR`` keeps the process's kernel builds in DIR.
 """
 
@@ -665,7 +666,7 @@ def _run(config: TrainConfig, dev: torch.device, mesh, t_run_start: float) -> di
 def _warm_start(state, path: str) -> None:
     """--pretrained: parameters (the EMA averages when the checkpoint has
     them) and running statistics from a checkpoint of this package or a
-    JAX package ``.msgpack`` one (as the JAX package's warm start, which
+    JAX package one, ``.msgpack`` or Orbax (as the JAX package's warm start, which
     takes ``ema_params or params`` and ``batch_stats``); optimizer and
     counters stay fresh."""
     pre = load_checkpoint(path)

@@ -2,13 +2,10 @@
 ``torch_cli_helpers.OPTION_CASES``; the rest in
 ``test_torch_cli_variant_options.py``): every option once refused (now
 ported) trains one epoch on a 256-image corpus and meets a check of its
-own; the one refusal left (``--allow-download-dataset``, which needs the
-network) names the ROADMAP item that lists it; ``--multihost`` and the
-mesh options' errors.
+own (``--allow-download-dataset``, the last one ported, is held against
+the JAX package over a loopback server in ``test_torch_downloads.py``);
+``--multihost`` and the mesh options' errors.
 """
-
-import os
-import re
 
 import pytest
 
@@ -16,8 +13,6 @@ from midi_vae_tpu_torch.cli.train import cli
 from midi_vae_tpu_torch.train.loop import run
 from torch_cli_helpers import OPTION_CASES, OPTION_IDS, OPTION_SPLIT, run_option_case, small_config
 from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
-
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("overrides,item", OPTION_CASES[:OPTION_SPLIT], ids=OPTION_IDS[:OPTION_SPLIT])
@@ -33,33 +28,6 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, monkeypatch, o
     ``tests/test_torch_multirank_cli.py``). The options that name a file
     get a real one under ``tmp_path`` (``_FILES``)."""
     run_option_case(tmp_path, monkeypatch, overrides)
-
-
-# each option still refused (train config overrides) → the flag ROADMAP names it by
-_STILL_REFUSED = [(dict(dataset_name="mnist", allow_download_dataset=True), "--allow-download-dataset")]
-
-
-def _roadmap_queue1_entries() -> dict:
-    """ROADMAP Queue 1's open entries: item label (``16``, ``17e`` …) → the entry's text."""
-    text = open(os.path.join(_REPO, "ROADMAP.md")).read()
-    queue = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
-    entries = {}
-    for block in re.split(r"\n(?=\d+\. \*\*)", queue)[1:]:
-        title = block.split("**")[1]
-        for label in re.findall(r"\b(\d+[a-e]?)\b", title.split(":")[0]):
-            entries[label] = block
-    return entries
-
-
-@pytest.mark.parametrize("overrides,flag", _STILL_REFUSED, ids=[f for _, f in _STILL_REFUSED])
-def test_refusals_name_the_item_roadmap_lists_them_under(tmp_path, overrides, flag):
-    """Each option still refused names a ROADMAP Queue 1 item whose entry lists it."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item (\w+)") as info:
-        run(small_config(tmp_path, models_dir=None, data_dir=str(tmp_path), **overrides), device="cpu")
-    item = re.search(r"ROADMAP Queue 1 item (\w+)", str(info.value)).group(1)
-    entries = _roadmap_queue1_entries()
-    assert item in entries, f"{flag}: item {item} is not an open ROADMAP Queue 1 entry ({sorted(entries)})"
-    assert flag in entries[item], f"{flag}: ROADMAP item {item} does not list it"
 
 
 def test_multihost_flag_raises(monkeypatch):

@@ -10,6 +10,8 @@ too: both take the max of the same f32 velocities).
 """
 
 import dataclasses
+import os
+import struct
 
 import jax
 import jax.numpy as jnp
@@ -293,6 +295,17 @@ def test_released_loader_refuses_to_iterate():
         next(loader.epoch(1))
 
 
+def _write_mnist(root):
+    """Tiny MNIST IDX files where ``download_mnist`` puts them."""
+    raw = os.path.join(root, "MNIST", "raw")
+    os.makedirs(raw, exist_ok=True)
+    for prefix, n in (("train", 12), ("t10k", 5)):
+        for kind, shape, magic in (("images-idx3", (n, 28, 28), 0x803), ("labels-idx1", (n,), 0x801)):
+            header = struct.pack(">I", magic) + struct.pack(">" + "I" * len(shape), *shape)
+            with open(os.path.join(raw, f"{prefix}-{kind}-ubyte"), "wb") as f:
+                f.write(header + bytes(int(np.prod(shape))))
+
+
 def test_fetch_partitions_match_jax(monkeypatch, tmp_path):
     spec = transforms.get_transform("noaug", 28)
     jspec = jax_transforms.get_transform("noaug", 28)
@@ -308,7 +321,11 @@ def test_fetch_partitions_match_jax(monkeypatch, tmp_path):
     for a, b in zip(proto[:3], jproto[:3]):
         np.testing.assert_array_equal(a.labels, b.labels)
     monkeypatch.setenv("MIDI_VAE_DATA_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fetch.fetch_dataset("mnist", download=True, device="cpu")
     with pytest.raises(FileNotFoundError):
         fetch.fetch_dataset("mnist", device="cpu")
+    # download=True fetches the missing files, then loads them (the fetch itself,
+    # over a loopback server: tests/test_torch_downloads.py)
+    fetched = []
+    monkeypatch.setattr(fetch, "download_mnist", lambda root: fetched.append(root) or _write_mnist(root))
+    train, val, test, distinct = fetch.fetch_dataset("mnist", download=True, device="cpu")
+    assert fetched == [str(tmp_path)] and (len(train), len(test), distinct) == (12, 5, False)

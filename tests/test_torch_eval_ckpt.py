@@ -11,6 +11,7 @@ checkpoints bitwise.
 
 import functools
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -252,15 +253,25 @@ def test_async_writer_surfaces_errors(tmp_path):
 
 
 def test_jax_checkpoints_are_refused(tmp_path):
-    """A JAX package Orbax directory is refused with the reason (its arrays
-    need tensorstore); JAX ``.msgpack`` files load
-    (``tests/test_torch_jax_checkpoints.py``), and a missing one is missing."""
+    """A JAX package Orbax directory whose files fail their check is refused
+    with the reason, and a missing checkpoint is missing; an intact one
+    loads (its flax params bitwise; every case: ``test_torch_orbax_read.py``),
+    as JAX ``.msgpack`` files do (``test_torch_jax_checkpoints.py``)."""
     from midi_vae_tpu.io.checkpoint import save_checkpoint as jax_save_checkpoint
 
     jmodel, variables = _jax_model_and_vars()
     path = str(tmp_path / "checkpoint_latest.orbax")
     jax_save_checkpoint(path, {"params": variables["params"]}, config={"arch": "FoldedVAE"}, epoch=1, backend="orbax")
-    with pytest.raises(ValueError, match="written by the JAX package.*tensorstore"):
+    payload = ckpt.load_checkpoint(path)
+    assert payload["state_format"] == ckpt.FLAX_STATE and payload["epoch"] == 1
+    for got, want in zip(jax.tree_util.tree_leaves(payload["state"]["params"]),
+                         jax.tree_util.tree_leaves(variables["params"])):
+        assert np.asarray(want).tobytes() == got.tobytes()
+    manifest = os.path.join(path, "state", "manifest.ocdbt")
+    blob = bytearray(open(manifest, "rb").read())
+    blob[30] ^= 0xFF
+    open(manifest, "wb").write(bytes(blob))
+    with pytest.raises(ValueError, match="CRC32C mismatch"):
         ckpt.load_checkpoint(path)
     with pytest.raises(FileNotFoundError):
         ckpt.load_checkpoint(str(tmp_path / "checkpoint_latest.msgpack"))

@@ -1,7 +1,8 @@
 """Import guard: the PyTorch port and its chip script stand alone. They
 import torch, never JAX, flax, optax or anything of the JAX package (not
-even its JAX-free modules: the port keeps its own copies), and not PyYAML
-or msgpack, which the GPU machine does not have."""
+even its JAX-free modules: the port keeps its own copies), and not PyYAML,
+msgpack, Orbax, tensorstore, zstandard or zarr, which the GPU machine does
+not have (the port reads JAX Orbax checkpoints with its own decoders)."""
 
 import ast
 import pathlib
@@ -11,7 +12,8 @@ import sys
 import pytest
 
 _REPO = pathlib.Path(__file__).resolve().parents[1]
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "midi_vae_tpu", "yaml", "msgpack")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "midi_vae_tpu", "yaml", "msgpack", "orbax", "tensorstore", "zstandard",
+              "zarr")
 
 
 def _port_sources():
@@ -56,6 +58,15 @@ _DATA_UTILITY_MODULES = (
     "core/backend_check.py", "core/compile_cache.py", "io/dcp_io.py", "io/flax_msgpack.py", "native/__init__.py",
     "native/_build.py", "native/midiparse.py", "native/rrd.py",
 )
+
+
+# the reader of JAX Orbax checkpoints (zstd, OCDBT, zarr v2)
+_ORBAX_READER_MODULES = ("io/ocdbt.py", "io/orbax_read.py", "io/zarr2.py", "native/zstd.py")
+
+
+def test_orbax_reader_modules_are_among_the_guarded_sources():
+    guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(_ORBAX_READER_MODULES) <= guarded
 
 
 def test_data_utility_modules_are_among_the_guarded_sources():
@@ -120,5 +131,5 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
     assert out.returncode == 0, out.stderr
     imported = out.stdout.split()
     assert len(imported) >= 50
-    assert {"midi_vae_tpu_torch." + m[:-3].replace("/", ".") for m in _VARIANT_MODULES + _ARTIFACT_MODULES} <= set(
-        imported)
+    modules = _VARIANT_MODULES + _ARTIFACT_MODULES + _ORBAX_READER_MODULES
+    assert {"midi_vae_tpu_torch." + m[:-3].replace("/", ".") for m in modules} <= set(imported)

@@ -56,11 +56,13 @@ CASES = {
 }
 
 
-def _jax_checkpoint(tmp_path, name):
+def _jax_checkpoint(tmp_path, name, backend="msgpack"):
     arch, model_kw, config_kw = CASES[name]
     model = jax_build_model(arch, in_channels=1, latent_dim=4, input_dim=32, **model_kw)
     ema = "ema_decay" in config_kw
-    state = jax_create_train_state(model, optax.adamw(1e-3), jax.random.PRNGKey(3), jnp.zeros((2, 32, 32, 1)), ema=ema)
+    tx = optax.adamw(1e-3)  # the init traced once under jit: eager flax init costs seconds an architecture
+    state = jax.jit(lambda key: jax_create_train_state(model, tx, key, jnp.zeros((2, 32, 32, 1)), ema=ema))(
+        jax.random.PRNGKey(3))
     rng = np.random.default_rng(4)
     perturb = lambda a: np.asarray(a) + rng.normal(0, 0.05, np.shape(a)).astype(np.asarray(a).dtype)  # noqa: E731
     # distinct EMA averages and running statistics, so a mix-up shows
@@ -70,9 +72,9 @@ def _jax_checkpoint(tmp_path, name):
     )
     config = JaxTrainConfig(dataset_name="vae-lines-synthetic", image_size=32, arch=arch, n_features=4,
                             hidden_dims=model_kw["hidden_dims"], fold=model_kw.get("fold", 4), **config_kw).to_dict()
-    path = str(tmp_path / f"{name}.msgpack")
+    path = str(tmp_path / f"{name}.{backend}")
     jax_save_checkpoint(path, state, config=config, epoch=3, total_step=21, n_samples_seen=2688,
-                        encoder_config={"input_size": 32, "n_feature": 4}, best_epoch=2)
+                        encoder_config={"input_size": 32, "n_feature": 4}, best_epoch=2, backend=backend)
     return path, state
 
 

@@ -162,7 +162,7 @@ def test_host_build_lands_in_the_build_dir_and_a_failure_raises(tmp_path, monkey
     package tree); a second build finds them; a failing compiler raises."""
     monkeypatch.setenv(cuda_lib.BUILD_DIR_ENV, str(tmp_path / "kernels"))
     built = _build.build()
-    assert set(built) == {"rollloader", "midiparse"}
+    assert set(built) == {"rollloader", "midiparse", "zstd"}
     for b in built.values():
         assert b.seconds is not None and b.path.is_file()
         assert tmp_path / "kernels" / "host" in b.path.parents
@@ -177,6 +177,8 @@ def test_host_build_lands_in_the_build_dir_and_a_failure_raises(tmp_path, monkey
     monkeypatch.setenv("PATH", f"{fake}{os.pathsep}{os.environ['PATH']}")
     with pytest.raises(RuntimeError, match="(?s)host C\\+\\+ build failed:.*g\\+\\+ exited 1.*nope"):
         _build.build(["midiparse"])
+    with pytest.raises(RuntimeError, match="(?s)host C\\+\\+ build failed:.*zstd: g\\+\\+ exited 1"):
+        _build.build(["zstd"])
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         _build.build(["rollloader"])
