@@ -157,12 +157,29 @@ From the repository root. It
    on the host), then evaluated, reconstructed, served and warm-started
    from as the ``.msgpack`` was; ``--allow-download-dataset``'s MNIST
    download from a loopback server (files byte-equal, datasets equal);
-15. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
+15. drives the port's public surface: (i) copies what a wheel of the
+   checkout ships (``pyproject.toml``'s packages and package data) into a
+   fresh directory and, in a process of its own whose path holds nothing
+   else of this repository, builds the host C++ libraries with g++ and K3
+   with nvcc from that copy, reads the JAX Orbax fixture, parses a ``.mid``
+   file, decodes a PNG and holds one K3 launch against its plain version;
+   (ii) writes 1,024 on-device rolls as the ``sageev-smoke`` PNG folder
+   (``write_image_folder``) and loads it back bitwise with no cache
+   (``load_image_folder``, the port's PNG decoder, Pillow blocked), then
+   trains a ``VanillaVAE`` subclass registered with ``register_model`` on
+   it for one fused epoch through ``cli.train --model`` (launches from the
+   run's forwards; K1–K3 against their plain versions at its shapes);
+   (iii) ``rasterize_batch`` and ``augment_pianoroll`` on the card bitwise
+   the CPU; (iv) ``examples/torch_end_to_end.py`` (64 files, 2 epochs) and
+   ``examples/torch_migrate_from_reference.py`` on the card, each exiting
+   0; (v) the phase's seconds;
+16. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
    accumulated run, ``variant_launches`` for every run of item 10,
    ``model_variant_launches`` for item 11, ``artifact_launches`` for item
    12, ``parallel_launches`` for item 13, ``data_launches`` for the
-   ``rrd:`` epoch and the ``--pretrained`` Orbax epoch of item 14), the
-   card line again, and as the last line
+   ``rrd:`` epoch and the ``--pretrained`` Orbax epoch of item 14,
+   ``public_api_launches`` for the registered architecture's epoch of
+   item 15), the card line again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
@@ -192,7 +209,7 @@ import torch.nn.functional as F
 from midi_vae_tpu_torch.data.synthetic import make_pianoroll_batch
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.registry import build_model
-from midi_vae_tpu_torch.models.vae import param_group_label
+from midi_vae_tpu_torch.models.vae import VanillaVAE, param_group_label
 from midi_vae_tpu_torch.ops import cuda_lib
 from midi_vae_tpu_torch.ops import fused_elbo as ops
 from midi_vae_tpu_torch.train.optim import build_optimizer
@@ -2894,7 +2911,7 @@ def data_phase(dev, root: Path, card: str) -> dict:
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     built = _build.build()
-    check(set(built) == {"rollloader", "midiparse", "zstd"}, f"host libraries {sorted(built)}")
+    check(set(built) == {"rollloader", "midiparse", "zstd", "png"}, f"host libraries {sorted(built)}")
     log(f"  host C++ libraries in {time.perf_counter() - t0:.2f} s: " + ", ".join(
         f"{n} {'found built' if b.seconds is None else f'g++ {b.seconds:.2f} s'}" for n, b in built.items()))
     models = root / "build" / "data_models"
@@ -2922,6 +2939,255 @@ def data_phase(dev, root: Path, card: str) -> dict:
     data_counts = dict(stream_counts)
     add_counts(data_counts, orbax_counts)
     return data_counts
+
+
+# ============================================================== public API
+
+PNG_ROLLS = 1024  # 128×128 uint8 rolls written as the sageev-smoke PNG folder
+PNG_DATASET = "sageev-smoke"
+REGISTERED_ARCH = "SmokeRollVAE"
+TWIN_TIMEOUT_S = 600
+
+
+class SmokeRollVAE(VanillaVAE):
+    """A VanillaVAE registered under a name of its own, as a user adds an
+    architecture (``models/registry.py`` ``register_model``)."""
+
+
+def wheel_files(root: Path) -> list:
+    """(source, path in the wheel) of every file a wheel of this checkout
+    ships: the ``.py`` files of each package ``pyproject.toml``'s
+    ``packages.find`` includes, and its ``package-data`` globs."""
+    import fnmatch
+    import tomllib
+
+    setup = tomllib.loads((root / "pyproject.toml").read_text())["tool"]["setuptools"]
+    include = setup["packages"]["find"]["include"]
+    packages = []
+    for top in sorted(root.iterdir()):
+        if (top / "__init__.py").is_file() and any(fnmatch.fnmatchcase(top.name, pat) for pat in include):
+            packages += [d for d in [top, *sorted(top.rglob("*"))] if (d / "__init__.py").is_file()]
+    files = []
+    for pkg in packages:
+        name = ".".join(pkg.relative_to(root).parts)
+        files += [(f, f.relative_to(root)) for f in sorted(pkg.glob("*.py"))]
+        for pattern in setup["package-data"].get(name, []):
+            files += [(f, f.relative_to(root)) for f in sorted(pkg.glob(pattern)) if f.is_file()]
+    return files
+
+
+INSTALLED_CHECK = r"""
+import json, sys, time
+from pathlib import Path
+tree, fixture, work = sys.argv[1:4]
+sys.path.insert(0, tree)
+import numpy as np
+import torch
+import midi_vae_tpu_torch
+from midi_vae_tpu_torch.io.logging import write_png
+from midi_vae_tpu_torch.io.orbax_read import load_jax_orbax
+from midi_vae_tpu_torch.midi.factory import generate_midi_dataset
+from midi_vae_tpu_torch.midi.parse import parse_midi
+from midi_vae_tpu_torch.native import _build
+from midi_vae_tpu_torch.native.png import read_png
+from midi_vae_tpu_torch.ops import cuda_lib
+from midi_vae_tpu_torch.ops import fused_elbo as ops
+out = {"package": midi_vae_tpu_torch.__file__}
+t0 = time.perf_counter()
+out["host_built"] = {n: b.seconds for n, b in _build.build(["zstd", "midiparse", "rollloader", "png"]).items()}
+out["host_build_s"] = time.perf_counter() - t0
+payload = load_jax_orbax(fixture)
+out["orbax_total_step"] = payload["total_step"]
+generate_midi_dataset(1, work + "/mid", seed=0)
+notes = [parse_midi(str(f)) for f in sorted(Path(work, "mid").rglob("*.mid"))]
+python = [parse_midi(str(f), prefer_native=False) for f in sorted(Path(work, "mid").rglob("*.mid"))]
+out["mid_notes"] = [len(n.pitch) for n in notes]
+out["mid_same"] = all(np.array_equal(getattr(a, k), getattr(b, k)) for a, b in zip(notes, python)
+                      for k in ("onset", "duration", "pitch", "velocity"))
+img = np.random.default_rng(0).integers(0, 256, (128, 128), dtype=np.uint8)
+write_png(work + "/one.png", img)
+out["png_same"] = bool(np.array_equal(read_png(work + "/one.png"), img))
+t0 = time.perf_counter()
+out["cuda_built"] = {n: (b.seconds, str(b.path)) for n, b in cuda_lib.build().items()}
+out["cuda_build_s"] = time.perf_counter() - t0
+gen = torch.Generator(device="cuda").manual_seed(3)
+mu = torch.randn((100, 10), generator=gen, device="cuda")
+lv = 0.3 * torch.randn((100, 10), generator=gen, device="cuda")
+ops.reset_launch_counts()
+z, kl = ops.reparam_kl(mu, lv, 21)
+out["k3_launches"] = ops.launch_counts()["K3"]
+z_plain, kl_plain = ops.reparam_kl_plain(mu, lv, ops.k3_eps_plain(mu.shape, 21, mu.device))
+top = torch.maximum(z.abs(), z_plain.abs())
+ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+out["k3_z_beyond_ulp"] = int(((z - z_plain).abs() > ulp).sum())
+out["k3_kl_rel_err"] = abs(float(kl) - float(kl_plain)) / abs(float(kl_plain))
+print("INSTALLED " + json.dumps(out))
+"""
+
+
+def installed_package_check(root: Path, card: str) -> None:
+    """(i) What a wheel of this checkout ships, copied into a fresh
+    directory: in a process whose working directory is elsewhere, with only
+    that directory of this repository on its path and fresh build
+    directories, it builds the host C++ libraries with g++ and K3 with
+    nvcc from the copied sources, reads the JAX Orbax fixture (zstd),
+    parses a ``.mid`` file, decodes a PNG and holds one K3 launch against
+    its plain version."""
+    (root / "build").mkdir(exist_ok=True)
+    base = Path(tempfile.mkdtemp(prefix="installed_", dir=root / "build"))
+    tree, work, kernels = base / "site", base / "work", base / "kernels"
+    work.mkdir()
+    files = wheel_files(root)
+    for src, rel in files:
+        (tree / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(src, tree / rel)
+    shipped = sorted(str(rel) for _, rel in files if rel.suffix in (".cc", ".cu"))
+    log(f"  wheel contents: {len(files)} files; sources shipped: {', '.join(shipped)}")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env[cuda_lib.BUILD_DIR_ENV] = str(kernels)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", INSTALLED_CHECK, str(tree), str(root / JAX_ORBAX_FIXTURE),
+                           str(work)], cwd=work, env=env, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"the installed copy failed (exit {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                                f"{proc.stderr[-5000:]}")
+    out = json.loads(next(line for line in proc.stdout.splitlines() if line.startswith("INSTALLED "))[10:])
+    check(out["package"].startswith(str(tree)), f"imported {out['package']}, not the installed copy")
+    check(all(v is not None for v in out["host_built"].values()), f"host libraries not built anew: {out['host_built']}")
+    check(all(s is not None and str(kernels) in p for s, p in out["cuda_built"].values()),
+          f"CUDA libraries not built anew into {kernels}: {out['cuda_built']}")
+    check(out["orbax_total_step"] > 0 and out["mid_same"] and out["png_same"],
+          f"installed copy: orbax {out['orbax_total_step']}, .mid {out['mid_same']}, PNG {out['png_same']}")
+    check(out["k3_launches"] == 1 and out["k3_z_beyond_ulp"] == 0 and out["k3_kl_rel_err"] <= 1e-5,
+          f"installed K3 vs plain: {out}")
+    log(f"  installed copy ({time.perf_counter() - t0:.1f} s, its own process): host libraries "
+        f"{ {n: round(s, 2) for n, s in out['host_built'].items()} } s with g++ ({out['host_build_s']:.2f} s), "
+        f"CUDA {[n for n in out['cuda_built']]} with nvcc ({out['cuda_build_s']:.2f} s); JAX Orbax fixture read "
+        f"(total_step {out['orbax_total_step']}); .mid parsed natively = Python ({out['mid_notes']} notes); "
+        f"PNG decoded bitwise; K3 [100,10] f32 once: z within 1 ulp of plain, KL rel err {out['k3_kl_rel_err']:.2e} "
+        f"[{card}]")
+    shutil.rmtree(base)
+
+
+def registered_png_run(dev, root: Path, card: str) -> tuple:
+    """(ii) 1,024 rolls from the on-device generator written as the
+    ``sageev-smoke`` PNG folder by ``write_image_folder`` and read back by
+    ``load_image_folder`` (the port's PNG writer and decoder, Pillow
+    blocked), then one fused epoch of a registered architecture on that
+    folder through the train CLI. Returns its launches and the kernels'
+    errors at its shapes."""
+    from midi_vae_tpu_torch.data.sources import load_image_folder, write_image_folder
+    from midi_vae_tpu_torch.models.registry import MODEL_REGISTRY, register_model
+
+    pil = sys.modules.get("PIL")
+    sys.modules["PIL"] = None  # the card's machine has no Pillow; make sure nothing here uses one
+    try:
+        rolls, counts = make_pianoroll_batch(torch.Generator(device=dev).manual_seed(31), PNG_ROLLS, device=dev)
+        images = (rolls.cpu().numpy() * 255).astype(np.uint8)
+        labels = counts.cpu().numpy() % 4
+        data_root = root / "build" / "png_data"
+        folder = data_root / PNG_DATASET
+        shutil.rmtree(data_root, ignore_errors=True)
+        t0 = time.perf_counter()
+        write_image_folder(images, labels, str(folder))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = load_image_folder(str(folder))
+        decode_s = time.perf_counter() - t0
+        order = [int(f[len("image_"):-len(".png")]) - 1 for c in sorted(os.listdir(folder)) if (folder / c).is_dir()
+                 for f in sorted(os.listdir(folder / c))]
+        check(ds.images.shape == (PNG_ROLLS, 128, 128, 1) and np.array_equal(ds.images, images[order])
+              and np.array_equal(ds.labels, np.unique(labels, return_inverse=True)[1][order]),
+              "the PNG folder did not read back as the rolls written")
+        png_bytes = sum(f.stat().st_size for f in folder.rglob("*.png"))
+        log(f"  {PNG_ROLLS} rolls 128×128 written as {PNG_DATASET} ({len(ds.class_names)} class folders, {png_bytes} "
+            f"bytes of PNG) in {write_s:.3f} s; loaded with no cache (decode, stack, _cache.npz written) in "
+            f"{decode_s:.3f} s ({decode_s / PNG_ROLLS * 1e3:.4f} ms per image), bitwise the rolls [{card}]")
+        (folder / "_cache.npz").unlink()  # the CLI run decodes the folder again
+
+        register_model(REGISTERED_ARCH, SmokeRollVAE)
+        try:
+            r, run_counts = fused_run(
+                ["--dataset", PNG_DATASET, "--data-dir", str(data_root), "--model", REGISTERED_ARCH,
+                 "--transform-type", "pianoroll", "--image-size", "128", "--fused", "--bce-targets", "normalized",
+                 "--batch-size", str(CLI_BATCH), "--epochs", "1", "--seed", "0",
+                 "--models-dir", str(root / "build" / "public_models"), "--run-name", "public",
+                 "--run-id", "registered"],
+                1, f"{REGISTERED_ARCH} (registered) on {PNG_DATASET}, fused, 1 epoch", card)
+        finally:
+            MODEL_REGISTRY.pop(REGISTERED_ARCH.lower())
+        check(type(r["state"].model) is SmokeRollVAE, f"--model built {type(r['state'].model).__name__}")
+        check(math.isfinite(r["history"][0]["train"]["loss"]), "registered run: non-finite loss")
+        throughput = r["history"][0]["train"]["throughput"]
+        log(f"  --model {REGISTERED_ARCH} built {type(r['state'].model).__name__}; corpus fetched (PNG decode, no "
+            f"cache) in {r['timings']['fetch_s']:.3f} s; epoch {throughput:.1f} samples/s [{card}]")
+        errs = kernels_at_run_shapes(dev, {"registered": run_shape(r, CLI_BATCH)})
+    finally:
+        if pil is None:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = pil
+    return run_counts, errs
+
+
+def rasterize_on_the_card(dev, card: str) -> None:
+    """(iii) ``rasterize_batch`` and ``augment_pianoroll`` on the card, each
+    bitwise the same call on the CPU with the same notes and draws."""
+    from midi_vae_tpu_torch.midi.rasterize import augment_pianoroll, rasterize_batch
+
+    rng = np.random.default_rng(7)
+    b, n = 64, 48
+    notes = (rng.uniform(-8, 140, (b, n)).astype(np.float32), rng.uniform(0.2, 24, (b, n)).astype(np.float32),
+             rng.integers(0, 128, (b, n)).astype(np.int32), rng.uniform(0, 1, (b, n)).astype(np.float32),
+             rng.uniform(size=(b, n)) > 0.25)
+    notes[4][:4] = False  # empty rows
+    cpu = rasterize_batch(*map(torch.from_numpy, notes))
+    card_out = rasterize_batch(*(torch.from_numpy(a).to(dev) for a in notes))
+    check(cpu.shape == (b, 128, 128, 1) and torch.equal(card_out.cpu(), cpu), "rasterize_batch: card != CPU")
+    draws = [(-6, 16, 0.7), (3, -9, 1.1999), (0, 0, 1.0), (5, 2, 0.93)]
+    for i, (dp, dt, s) in enumerate(draws):
+        want = augment_pianoroll(cpu[i], pitch_shift=dp, time_shift=dt, scale=s)
+        got = augment_pianoroll(card_out[i], pitch_shift=dp, time_shift=dt, scale=s)
+        check(torch.equal(got.cpu(), want), f"augment_pianoroll {(dp, dt, s)}: card != CPU")
+    log(f"  rasterize_batch [{b}, {n}] notes → {list(cpu.shape)} ({int((cpu > 0).sum())} cells lit) and "
+        f"augment_pianoroll at {len(draws)} given draws: the card bitwise the CPU [{card}]")
+
+
+def example_twins(root: Path, card: str) -> None:
+    """(iv) ``examples/torch_end_to_end.py`` at its defaults (64 files, 2
+    epochs) and ``examples/torch_migrate_from_reference.py`` on the card, each
+    in a process of its own; both must exit 0 (the migration twin checks its
+    forward parity within 1e-4, TF32 off, and that the loss falls)."""
+    workdir = root / "build" / "e2e_torch"
+    shutil.rmtree(workdir, ignore_errors=True)
+    runs = {
+        "torch_end_to_end.py": ["--workdir", str(workdir)],
+        "torch_migrate_from_reference.py": [],
+    }
+    for name, args in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "examples" / name), *args], cwd=root, capture_output=True,
+                              text=True, timeout=TWIN_TIMEOUT_S)
+        check(proc.returncode == 0, f"examples/{name} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                    f"{proc.stderr[-3000:]}")
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith(("[", "forward parity", "continued", "migration"))]
+        log(f"  examples/{name} on the card: exit 0 in {time.perf_counter() - t0:.1f} s [{card}]")
+        for ln in lines:
+            log(f"    {ln[:300]}")
+
+
+def public_api_phase(dev, root: Path, card: str) -> tuple:
+    """The port's public surface: (i) the installed tree, (ii) a registered
+    architecture trained on a PNG folder through the fused kernels, (iii)
+    rasterize and augment on the card, (iv) the example twins; (v) the
+    phase's seconds. Returns the launches and kernel errors of (ii)."""
+    t_phase = time.perf_counter()
+    installed_package_check(root, card)
+    counts, errs = registered_png_run(dev, root, card)
+    rasterize_on_the_card(dev, card)
+    example_twins(root, card)
+    log(f"  public API phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return counts, errs
 
 
 # ==================================================================== main
@@ -2973,6 +3239,8 @@ def main() -> int:
     log("data and utilities (rrd: stream, --scan-steps, native parser, caches, probe, orbax, JAX checkpoints, "
         "download):")
     data_counts = data_phase(dev, root, card)
+    log("public API (installed tree, registered architecture on a PNG folder, rasterize, example twins):")
+    public_counts, public_errs = public_api_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -2993,7 +3261,8 @@ def main() -> int:
                 "artifact_launches": artifact_counts[key],
                 "parallel_launches": parallel_counts[key],
                 "data_launches": data_counts[key],
-                "max_abs_err": max(errs[key], variant_errs[key], model_errs[key]),
+                "public_api_launches": public_counts[key],
+                "max_abs_err": max(errs[key], variant_errs[key], model_errs[key], public_errs[key]),
                 "ms": ms,
                 "device_ms": device_ms[key],
                 "plain_ms": plain_ms,

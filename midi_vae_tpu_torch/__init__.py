@@ -6,3 +6,5 @@ The JAX package stays the reference; this package mirrors its layout
 use. It imports ``torch`` and never JAX or the JAX package. Entry points
 run on the GPU unless the caller passes ``device="cpu"``.
 """
+
+from midi_vae_tpu_torch.__meta__ import __version__  # noqa: F401

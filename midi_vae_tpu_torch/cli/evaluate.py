@@ -23,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import sys
 from typing import Any
 
 
@@ -170,5 +171,12 @@ def cli(argv=None) -> dict:
     return results
 
 
+def main(argv=None) -> int:
+    """Console entry point (``midi-vae-torch-evaluate``): :func:`cli`, whose return value is for
+    callers in Python, not an exit status."""
+    cli(argv)
+    return 0
+
+
 if __name__ == "__main__":
-    cli()
+    sys.exit(main())

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 from typing import Optional
 
 import numpy as np
@@ -380,5 +381,12 @@ def cli(argv=None) -> np.ndarray:
     return images
 
 
+def main(argv=None) -> int:
+    """Console entry point (``midi-vae-torch-generate``): :func:`cli`, whose return value is for
+    callers in Python, not an exit status."""
+    cli(argv)
+    return 0
+
+
 if __name__ == "__main__":
-    cli()
+    sys.exit(main())

@@ -474,5 +474,10 @@ def cli(argv=None):
         dist.destroy_process_group()
 
 
+def main(argv=None) -> int:
+    """Console entry point (``midi-vae-torch-train``): :func:`cli`; exit status 1 when it returns no results."""
+    return 0 if cli(argv) is not None else 1
+
+
 if __name__ == "__main__":
-    sys.exit(0 if cli() is not None else 1)
+    sys.exit(main())

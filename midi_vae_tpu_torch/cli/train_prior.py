@@ -459,5 +459,12 @@ def prior_rank(rank: int, device, argv) -> dict:
     return cli(argv)
 
 
+def main(argv=None) -> int:
+    """Console entry point (``midi-vae-torch-train-prior``): :func:`cli`, whose return value is for
+    callers in Python, not an exit status."""
+    cli(argv)
+    return 0
+
+
 if __name__ == "__main__":
-    cli()
+    sys.exit(main())

@@ -145,11 +145,28 @@ def rrd_shape(path: str) -> Tuple[int, int, int, int]:
 # ---------------------------------------------------------------- ImageFolder
 
 
+def _read_image(path: str) -> np.ndarray:
+    """One image file as the uint8 array ``np.asarray(PIL.Image.open(path))``
+    gives: PNGs through the port's own decoder (``native/png.py``), the
+    other formats through Pillow, which raises naming itself when missing."""
+    if path.lower().endswith(".png"):
+        from midi_vae_tpu_torch.native.png import read_png
+
+        return read_png(path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: decoding {os.path.splitext(path)[1]} images needs Pillow (PIL), which cannot "
+                          "be imported; PNG folders load without it") from e
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
 def load_image_folder(root: str) -> ArrayDataset:
     """A class-per-subdirectory image tree (ImageFolder semantics: classes =
     sorted subdirectories, files sorted within each), stacked into one
-    uint8 array; a ``_cache.npz`` sidecar skips decoding next time. PNG
-    decoding needs Pillow, imported only when there is no cache."""
+    uint8 array; a ``_cache.npz`` sidecar skips decoding next time. PNGs
+    decode without Pillow; the other formats need it."""
     cache = os.path.join(root, "_cache.npz")
     if os.path.isfile(cache):
         data = np.load(cache, allow_pickle=False)
@@ -159,8 +176,6 @@ def load_image_folder(root: str) -> ArrayDataset:
             name=os.path.basename(root),
             class_names=[str(c) for c in data["class_names"]],
         )
-    from PIL import Image
-
     classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
     if not classes:
         raise FileNotFoundError(f"No class subdirectories under {root}")
@@ -170,8 +185,7 @@ def load_image_folder(root: str) -> ArrayDataset:
         for fname in sorted(os.listdir(cdir)):
             if not fname.lower().endswith(IMG_EXTENSIONS):
                 continue
-            with Image.open(os.path.join(cdir, fname)) as im:
-                arr = np.asarray(im)
+            arr = _read_image(os.path.join(cdir, fname))
             if arr.ndim == 2:
                 arr = arr[:, :, None]
             images.append(arr.astype(np.uint8))
@@ -185,6 +199,22 @@ def load_image_folder(root: str) -> ArrayDataset:
     except OSError:
         pass  # read-only dataset directory: no cache
     return ArrayDataset(images=images_arr, labels=labels_arr, name=os.path.basename(root), class_names=classes)
+
+
+def write_image_folder(images: np.ndarray, labels: np.ndarray, path: str, label_suffix: str = "_lines") -> None:
+    """Write uint8 NHWC arrays in the reference's PNG class-folder layout
+    (``{path}/{label}{label_suffix}/image_{i}.png``, i from 1), as the JAX
+    package's ``write_image_folder`` does, with the port's own PNG writer
+    (``io/logging.py`` ``write_png``): no Pillow needed."""
+    from midi_vae_tpu_torch.io.logging import write_png
+
+    if images.dtype != np.uint8:
+        raise ValueError(f"PNG folders hold uint8 images, got {images.dtype}")
+    os.makedirs(path, exist_ok=True)
+    for i, (img, label) in enumerate(zip(images, labels)):
+        class_dir = os.path.join(path, f"{label}{label_suffix}")
+        os.makedirs(class_dir, exist_ok=True)
+        write_png(os.path.join(class_dir, f"image_{i + 1}.png"), img)
 
 
 # --------------------------------------------------------------- MIDI folder

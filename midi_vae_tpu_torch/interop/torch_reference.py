@@ -24,9 +24,12 @@ back bitwise, ``num_batches_tracked`` included when the export is given
 the same count (the port's BatchNorm keeps none; JAX stamps the
 checkpoint's step count).
 
-CLI, a trained ``--torch-compat`` checkpoint to a reference ``state_dict``::
+CLI, a trained ``--torch-compat`` checkpoint's EMA weights (its raw
+weights when it has none) to a reference ``state_dict``, written with
+``torch.save``, or with ``np.savez`` when the path ends in ``.npz`` (the
+JAX package's ``torch_export`` file, key for key)::
 
-    python -m midi_vae_tpu_torch.interop.torch_reference --checkpoint CKPT --out ref.pt [--no-ema]
+    python -m midi_vae_tpu_torch.interop.torch_reference --checkpoint CKPT --out ref.pt|ref.npz
 """
 
 from __future__ import annotations
@@ -143,23 +146,25 @@ def export_reference_state_dict(model, num_batches_tracked: int = 0) -> Dict[str
 
 def main(argv: Optional[list] = None) -> None:
     """Export a trained ``--torch-compat`` checkpoint to a reference
-    ``state_dict`` (``torch.save``)."""
+    ``state_dict``: ``np.savez`` for an ``.npz`` path, ``torch.save`` otherwise."""
     parser = argparse.ArgumentParser(description="Export a checkpoint to a torch-reference state_dict")
     parser.add_argument("--checkpoint", required=True)
-    parser.add_argument("--out", required=True, help="Output path (torch.save of the state_dict)")
-    parser.add_argument("--no-ema", action="store_true", help="Export the raw (non-averaged) parameters")
+    parser.add_argument("--out", required=True, help=".pt (torch.save) or .npz output path")
     args = parser.parse_args(argv)
 
     from midi_vae_tpu_torch.cli.generate import _load_model_and_state
     from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
 
     payload = load_checkpoint(args.checkpoint)
-    model, *_ = _load_model_and_state(args.checkpoint, use_ema=not args.no_ema, payload=payload, device="cpu")
+    model, *_ = _load_model_and_state(args.checkpoint, use_ema=True, payload=payload, device="cpu")
     try:
         sd = export_reference_state_dict(model, num_batches_tracked=int(payload.get("total_step", 0)))
     except ValueError as e:
         raise SystemExit(str(e)) from e
-    torch.save(sd, args.out)
+    if args.out.endswith(".npz"):
+        np.savez(args.out, **{k: v.numpy() for k, v in sd.items()})
+    else:
+        torch.save(sd, args.out)
     print(f"wrote {len(sd)} tensors to {args.out}")
 
 

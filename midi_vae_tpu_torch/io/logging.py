@@ -151,11 +151,12 @@ def print_epoch_summary(kind: str, epoch: int, n_epoch: int, stats: Dict[str, An
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """An 8-bit grayscale ([H, W] or [H, W, 1]) or RGB ([H, W, 3]) PNG, with zlib."""
+    """An 8-bit PNG, with zlib: greyscale ([H, W] or [H, W, 1]), grey + alpha
+    ([H, W, 2]), RGB ([H, W, 3]) or RGBA ([H, W, 4])."""
     if image.ndim == 3 and image.shape[-1] == 1:
         image = image[..., 0]
     h, w = image.shape[:2]
-    color = 0 if image.ndim == 2 else 2
+    color = 0 if image.ndim == 2 else {2: 4, 3: 2, 4: 6}[image.shape[-1]]
     raw = b"".join(b"\x00" + np.ascontiguousarray(image[r]).tobytes() for r in range(h))
 
     def chunk(kind: bytes, data: bytes) -> bytes:

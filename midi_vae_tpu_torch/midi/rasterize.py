@@ -1,8 +1,9 @@
 """Piano-roll rasterization and augmentation (counterpart of
 ``midi_vae_tpu/midi/rasterize.py``).
 
-- :func:`rasterize_notes`: padded note arrays → one [P, T] roll, in torch
-  on any device (a max-scatter over pitch rows).
+- :func:`rasterize_batch` and :func:`rasterize_notes`: padded note arrays
+  → [B, P, T, 1] rolls or one [P, T] roll, in torch on any device (a
+  max-scatter over (batch, pitch) rows).
 - :func:`notes_to_windows`: a parsed file → stacked non-overlapping uint8
   [P, T] windows, in numpy on the host (the corpus-cache path; the JAX
   package's own numpy code, so the windows are bitwise equal).
@@ -10,7 +11,7 @@
   zeroed), time shift (vacated columns zeroed) and velocity scale on a
   batch, in torch on the batch's device. The draws come from a
   ``torch.Generator`` on that device, or are given (tests inject the JAX
-  side's).
+  side's); :func:`augment_pianoroll` is the same for one [P, T, C] roll.
 """
 
 from __future__ import annotations
@@ -25,6 +26,40 @@ from midi_vae_tpu_torch.midi.smf import MAX_PITCH, NoteArrays
 DEFAULT_SECONDS_PER_STEP = 0.05  # 20 columns/sec: 128 steps ≈ 6.4 s of music
 
 
+def rasterize_batch(
+    onset_steps: torch.Tensor,  # float32 [B, N] in step units
+    duration_steps: torch.Tensor,  # float32 [B, N]
+    pitch: torch.Tensor,  # int [B, N]
+    velocity: torch.Tensor,  # float32 [B, N] in [0, 1]
+    valid: torch.Tensor,  # bool [B, N]: padding mask
+    *,
+    pitches: int = MAX_PITCH,
+    steps: int = 128,
+) -> torch.Tensor:
+    """Padded note arrays with a leading batch axis → float32 [B, pitches,
+    steps, 1] rolls of velocities, in one max-scatter over (batch, pitch)
+    rows.
+
+    Overlapping notes on one pitch keep the louder velocity; notes wholly
+    outside [0, steps), and notes whose pitch is outside [0, pitches), vanish.
+    """
+    dev = onset_steps.device
+    b = onset_steps.shape[0]
+    cols = torch.arange(steps, dtype=torch.float32, device=dev)
+    start = onset_steps.float()[..., None]
+    end = (onset_steps.float() + duration_steps.float().clamp_min(1.0))[..., None]
+    occupied = (cols >= torch.floor(start)) & (cols < torch.ceil(end)) & valid[..., None]
+    vel_rows = torch.where(occupied, velocity.float()[..., None], 0.0)  # [B, N, steps]
+    # padded notes and pitches off the roll land in an extra row per sample that is dropped
+    pitch = pitch.long()
+    seg = torch.where(valid & (pitch >= 0) & (pitch < pitches), pitch, pitches)
+    seg = seg + torch.arange(b, device=dev)[:, None] * (pitches + 1)
+    roll = torch.zeros((b * (pitches + 1), steps), dtype=torch.float32, device=dev)
+    roll.scatter_reduce_(0, seg.reshape(-1, 1).expand(-1, steps), vel_rows.reshape(-1, steps), reduce="amax",
+                         include_self=True)
+    return roll.view(b, pitches + 1, steps)[:, :pitches, :, None]
+
+
 def rasterize_notes(
     onset_steps: torch.Tensor,  # float32 [N] in step units
     duration_steps: torch.Tensor,  # float32 [N]
@@ -35,21 +70,10 @@ def rasterize_notes(
     pitches: int = MAX_PITCH,
     steps: int = 128,
 ) -> torch.Tensor:
-    """Padded note arrays → float32 [pitches, steps] roll of velocities.
-
-    Overlapping notes on one pitch keep the louder velocity; notes wholly
-    outside [0, steps) vanish.
-    """
-    cols = torch.arange(steps, dtype=torch.float32, device=onset_steps.device)[None, :]
-    start = onset_steps.float()[:, None]
-    end = (onset_steps.float() + duration_steps.float().clamp_min(1.0))[:, None]
-    occupied = (cols >= torch.floor(start)) & (cols < torch.ceil(end)) & valid[:, None]
-    vel_rows = torch.where(occupied, velocity.float()[:, None], 0.0)  # [N, steps]
-    # padded notes land in an extra row that is dropped
-    seg = torch.where(valid, pitch.long(), pitches)
-    roll = torch.zeros((pitches + 1, steps), dtype=torch.float32, device=onset_steps.device)
-    roll.scatter_reduce_(0, seg[:, None].expand(-1, steps), vel_rows, reduce="amax", include_self=True)
-    return roll[:pitches]
+    """Padded note arrays → float32 [pitches, steps] roll of velocities
+    (:func:`rasterize_batch` of one sample)."""
+    notes = (onset_steps, duration_steps, pitch, velocity, valid)
+    return rasterize_batch(*(t[None] for t in notes), pitches=pitches, steps=steps)[0, :, :, 0]
 
 
 def notes_to_windows(
@@ -153,3 +177,32 @@ def augment_pianoroll_batch(
     shifted = rolls.reshape(B * P * T, -1)[flat.reshape(-1)].reshape(rolls.shape)
     shifted = torch.where(keep[..., None], shifted, 0.0)
     return (shifted * scale.to(device=dev, dtype=shifted.dtype).reshape(B, 1, 1, 1)).clamp(0.0, 1.0)
+
+
+def augment_pianoroll(
+    roll: torch.Tensor,  # float32 [P, T, C] in [0, 1]
+    *,
+    generator: Optional[torch.Generator] = None,
+    max_pitch_shift: int = 6,
+    max_time_shift: int = 16,
+    velocity_scale: Tuple[float, float] = (0.7, 1.2),
+    pitch_shift: Optional[int] = None,
+    time_shift: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One roll's augmentation (the JAX package's ``augment_pianoroll``):
+    :func:`augment_pianoroll_batch` of a batch of one. The pitch shift, time
+    shift and velocity scale are drawn from ``generator`` unless given as
+    numbers."""
+    dev = roll.device
+    given = {}
+    if pitch_shift is not None:
+        given["pitch_shift"] = torch.tensor([int(pitch_shift)], device=dev)
+    if time_shift is not None:
+        given["time_shift"] = torch.tensor([int(time_shift)], device=dev)
+    if scale is not None:
+        given["scale"] = torch.tensor([float(scale)], dtype=torch.float32, device=dev)
+    return augment_pianoroll_batch(
+        roll[None], generator=generator, max_pitch_shift=max_pitch_shift, max_time_shift=max_time_shift,
+        velocity_scale=velocity_scale, **given,
+    )[0]

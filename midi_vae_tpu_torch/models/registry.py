@@ -5,11 +5,13 @@ Every architecture of the JAX registry: ``VanillaVAE``, ``FoldedVAE``,
 variant the JAX registry builds (stem, head, norm, torch_compat, remat,
 verbose); the combinations it refuses raise its ``ValueError`` messages.
 The Gaussian models take ``num_classes`` > 0 to become conditional.
+:func:`register_model` adds an architecture under a name of its own, which
+:func:`build_model` and the CLIs' ``--model`` then reach.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -23,6 +25,25 @@ MODEL_REGISTRY = {
     "vanillavae": VanillaVAE, "mlpvae": MLPVAE, "foldedvae": FoldedVAE, "vqvae": VQVAE, "foldedvqvae": FoldedVQVAE,
 }
 VQ_ARCHS = ("vqvae", "foldedvqvae")
+# the built-in classes, most derived first: a registered class takes the keywords of the first it derives from
+_FAMILIES = (("foldedvqvae", FoldedVQVAE), ("vqvae", VQVAE), ("foldedvae", FoldedVAE), ("mlpvae", MLPVAE))
+
+
+def register_model(name: str, ctor: Callable[..., torch.nn.Module]) -> None:
+    """Add ``ctor`` to the registry under ``name`` (case-insensitive), as the
+    JAX package's ``register_model`` does. :func:`build_model` calls it with
+    the keywords, and applies the refusals, of the built-in architecture it
+    derives from (the nearest of FoldedVQVAE, VQVAE, FoldedVAE, MLPVAE;
+    VanillaVAE's for any other class or callable)."""
+    MODEL_REGISTRY[name.lower()] = ctor
+
+
+def _family(ctor) -> str:
+    """The built-in architecture whose keyword set ``ctor`` takes."""
+    for key, cls in _FAMILIES:
+        if isinstance(ctor, type) and issubclass(ctor, cls):
+            return key
+    return "vanillavae"
 
 
 def build_model(
@@ -57,14 +78,16 @@ def build_model(
     key = arch.lower()
     if key not in MODEL_REGISTRY:
         raise ValueError(f"Unrecognised architecture: {arch}. Ported: {sorted(MODEL_REGISTRY)}")
-    if key in VQ_ARCHS:
+    ctor = MODEL_REGISTRY[key]
+    family = _family(ctor)
+    if family in VQ_ARCHS:
         if torch_compat:
             raise ValueError("torch_compat is reference-parity mode; the reference has no VQ-VAE")
         if fused_reparam:
             raise ValueError("VQVAE has no reparameterization; drop --fused")
         if num_classes:
             raise ValueError("VQVAE has no conditional variant; use --model VanillaVAE for --conditional")
-    if torch_compat and key == "mlpvae":
+    if torch_compat and family == "mlpvae":
         raise ValueError("torch_compat is the reference-parity mode of VanillaVAE; MLPVAE has no reference twin")
     if num_classes < 0:
         raise ValueError(
@@ -83,7 +106,7 @@ def build_model(
         verbose=verbose,
         generator=torch.Generator().manual_seed(seed),
     )
-    if key == "mlpvae":
+    if family == "mlpvae":
         if norm != "batch":
             raise ValueError("--norm applies to conv architectures; MLPVAE has no norm layers")
         if stem != "conv" or head != "deconv":
@@ -96,8 +119,8 @@ def build_model(
         kwargs["hidden_dims"] = tuple(hidden_dims)
     if dtype is not None:
         kwargs["dtype"] = dtype
-    if key in ("foldedvae", "foldedvqvae"):
+    if family in ("foldedvae", "foldedvqvae"):
         kwargs["fold"] = fold
-    if key in VQ_ARCHS:
+    if family in VQ_ARCHS:
         kwargs.update(codebook_size=int(codebook_size), vq_decay=float(vq_decay))
-    return MODEL_REGISTRY[key](**kwargs).to(dev)
+    return ctor(**kwargs).to(dev)

@@ -614,5 +614,12 @@ def cli(argv: Optional[list] = None):
         httpd.service.close()
 
 
+def main(argv=None) -> int:
+    """Console entry point (``midi-vae-torch-serve``): :func:`cli`, whose return value is for
+    callers in Python, not an exit status."""
+    cli(argv)
+    return 0
+
+
 if __name__ == "__main__":
-    cli()
+    sys.exit(main())

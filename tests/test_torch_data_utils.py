@@ -137,8 +137,8 @@ def test_compilation_cache_directory_receives_the_builds(tmp_path, monkeypatch):
     runs = [subprocess.run([sys.executable, "-c", code, cache], capture_output=True, text=True, env=env, check=True)
             for _ in range(2)]
     assert "built host library" in runs[0].stdout and "built host library" not in runs[1].stdout
-    assert runs[1].stdout.strip().endswith("[('midiparse', True), ('rollloader', True), ('zstd', True)]")
-    assert len(list((tmp_path / "cache" / "kernels" / "host").rglob("*.so"))) == 3
+    assert runs[1].stdout.strip().endswith("[('midiparse', True), ('png', True), ('rollloader', True), ('zstd', True)]")
+    assert len(list((tmp_path / "cache" / "kernels" / "host").rglob("*.so"))) == 4
 
 
 def test_backend_probe_gives_up_within_its_deadline(monkeypatch):

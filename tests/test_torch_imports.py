@@ -64,6 +64,20 @@ _DATA_UTILITY_MODULES = (
 _ORBAX_READER_MODULES = ("io/ocdbt.py", "io/orbax_read.py", "io/zarr2.py", "native/zstd.py")
 
 
+# the public surface added last: the package's metadata and the PNG decoder
+_PUBLIC_API_MODULES = ("__meta__.py", "native/png.py")
+
+
+def test_public_api_modules_are_among_the_guarded_sources():
+    guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(_PUBLIC_API_MODULES) <= guarded
+
+
+@pytest.mark.parametrize("path", sorted((_REPO / "examples").glob("torch_*.py")), ids=lambda p: p.name)
+def test_port_examples_import_nothing_of_jax(path):
+    test_port_imports_nothing_of_jax(path)
+
+
 def test_orbax_reader_modules_are_among_the_guarded_sources():
     guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(_ORBAX_READER_MODULES) <= guarded

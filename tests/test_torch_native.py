@@ -162,7 +162,7 @@ def test_host_build_lands_in_the_build_dir_and_a_failure_raises(tmp_path, monkey
     package tree); a second build finds them; a failing compiler raises."""
     monkeypatch.setenv(cuda_lib.BUILD_DIR_ENV, str(tmp_path / "kernels"))
     built = _build.build()
-    assert set(built) == {"rollloader", "midiparse", "zstd"}
+    assert set(built) == {"rollloader", "midiparse", "zstd", "png"}
     for b in built.values():
         assert b.seconds is not None and b.path.is_file()
         assert tmp_path / "kernels" / "host" in b.path.parents

@@ -15,7 +15,11 @@ tensorstore) is the reference, leaf by leaf and bitwise:
   orbax --async-checkpoint``;
 - (e) a bf16 leaf, 0-d leaves, the ``.old`` fallback and a leftover
   ``.staging``;
-- (f) corrupted or unsupported files raise and return nothing.
+- (f) corrupted or unsupported files raise and return nothing;
+- (g) a directory two ``jax.distributed`` processes of two devices each
+  saved (``ocdbt.process_0/``, ``ocdbt.process_1/``; the committed
+  ``fixtures/jax_sharded_2proc.orbax``, see ``make_jax_orbax_sharded.py``):
+  every leaf bitwise the arrays its script saved (``jax_sharded_2proc.npz``).
 
 The OCDBT store is also held against tensorstore's own listing, and the
 zarr reader against tensorstore on edge and missing chunks of every
@@ -62,6 +66,8 @@ ts = pytest.importorskip("tensorstore")
 _HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(_HERE, "fixtures", "jax_folded_lines28.orbax")
 MSGPACK_FIXTURE = os.path.join(_HERE, "fixtures", "jax_folded_lines28.msgpack")
+SHARDED_FIXTURE = os.path.join(_HERE, "fixtures", "jax_sharded_2proc.orbax")
+SHARDED_ARRAYS = os.path.join(_HERE, "fixtures", "jax_sharded_2proc.npz")
 FLAGSHIP = dict(hidden_dims=(48, 64, 128, 256), fold=8)  # configs/folded.yaml
 
 
@@ -309,6 +315,39 @@ def test_zarr_edge_and_missing_chunks_match_tensorstore(tmp_path, dtype, fill):
     if dtype == "bfloat16":
         got, want = got.view(torch.int16).numpy(), want.view(np.int16)
     assert got.dtype == want.dtype and got.shape == want.shape and got.tobytes() == want.tobytes()
+
+
+# ------------------------------------------------------------------ (g)
+
+
+def _leaf_paths(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def test_two_process_sharded_directory_reads_bitwise():
+    """Row- and column-sharded f32, a row-sharded bf16, replicated, 0-d,
+    scalar and dotted-name leaves, written as one OCDBT store per process.
+    The JAX package's own loader cannot restore this directory without a
+    template on another device count, so the saved arrays are the reference."""
+    assert {d for d in os.listdir(os.path.join(SHARDED_FIXTURE, "state")) if d.startswith("ocdbt.")} == {
+        "ocdbt.process_0", "ocdbt.process_1"}
+    got = load_checkpoint(SHARDED_FIXTURE)
+    assert got["state_format"] == FLAX_STATE and got["total_step"] == 7 and got["epoch"] == 1
+    want = np.load(SHARDED_ARRAYS)
+    leaves = dict(_leaf_paths(got["state"]))
+    assert set(leaves) == set(want.files)
+    assert type(leaves["step"]) is int and leaves["step"] == int(want["step"])
+    bits = leaves.pop("params/half")
+    assert isinstance(bits, torch.Tensor) and bits.dtype == torch.bfloat16
+    assert bits.view(torch.int16).numpy().view(np.uint16).tobytes() == want["params/half"].tobytes()
+    for path in set(leaves) - {"step"}:
+        a, b = leaves[path], want[path]
+        assert isinstance(a, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
 
 
 # ---------------------------------------------------------- the committed fixture

@@ -5,8 +5,11 @@ carried into the port by ``interop/from_jax.py`` (identical tensors); the
 port's forward against the reference torch model
 (``benchmarks/torch_cpu_baseline.py`` ``TorchRefVAE``, as
 ``tests/test_torch_parity.py`` uses it) in eval and train mode, within
-1e-6 absolute; the export and a bitwise round trip; the export CLI; the
-refusals.
+1e-6 absolute; the export and a bitwise round trip; the export CLI, its
+``.npz`` file against the JAX package's ``torch_export`` CLI on the same
+JAX checkpoint (whose weights the port carries across with
+``interop/from_jax.py``), key for key and bitwise, and its refusal of
+``--no-ema``; the refusals.
 
 Reference widths (32, 64, 128, 256), latent 10, batch 4; the forwards at
 32 px, the only size the reference runs (its decoder reshape is fixed),
@@ -16,12 +19,20 @@ the import and the round trip also at 28 px.
 import os
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
+from midi_vae_tpu.interop import torch_export as jax_torch_export
 from midi_vae_tpu.interop.torch_import import flatten_permutation as jax_flatten_permutation
 from midi_vae_tpu.interop.torch_import import import_reference_state_dict as jax_import
+from midi_vae_tpu.io.checkpoint import save_checkpoint as jax_save_checkpoint
+from midi_vae_tpu.models.registry import build_model as jax_build_model
+from midi_vae_tpu.train.config import TrainConfig as JaxTrainConfig
+from midi_vae_tpu.train.state import create_train_state as jax_create_train_state
 from midi_vae_tpu_torch.interop import torch_reference
 from midi_vae_tpu_torch.interop.from_jax import load_flax_variables
 from midi_vae_tpu_torch.interop.torch_reference import (
@@ -160,3 +171,47 @@ def test_only_torch_compat_vanilla_has_a_reference_twin(kwargs, match):
         export_reference_state_dict(model)
     with pytest.raises(ValueError, match=match):
         import_reference_state_dict(model, _reference(32).state_dict())
+
+
+def _jax_torch_compat_checkpoint(path: str) -> None:
+    """A JAX checkpoint of a ``torch_compat`` VanillaVAE whose EMA averages
+    and running statistics differ from its parameters, so a mix-up shows."""
+    model = jax_build_model("VanillaVAE", in_channels=1, latent_dim=10, input_dim=32, hidden_dims=HID,
+                            torch_compat=True)
+    state = jax.jit(lambda key: jax_create_train_state(model, optax.adamw(1e-3), key, jnp.zeros((2, 32, 32, 1)),
+                                                       ema=True))(jax.random.PRNGKey(3))
+    rng = np.random.default_rng(4)
+    perturb = lambda a: np.asarray(a) + rng.normal(0, 0.05, np.shape(a)).astype(np.asarray(a).dtype)  # noqa: E731
+    state = state.replace(ema_params=jax.tree_util.tree_map(perturb, state.ema_params),
+                          batch_stats=jax.tree_util.tree_map(lambda a: np.abs(perturb(a)), state.batch_stats))
+    config = JaxTrainConfig(dataset_name="vae-lines-synthetic", image_size=32, arch="VanillaVAE", n_features=10,
+                            hidden_dims=HID, torch_compat=True, ema_decay=0.9).to_dict()
+    jax_save_checkpoint(path, state, config=config, epoch=1, total_step=9,
+                        encoder_config={"input_size": 32, "n_feature": 10})
+
+
+def test_export_cli_npz_is_the_jax_torch_export_npz(tmp_path, capsys):
+    """``--out x.npz`` writes ``np.savez`` of the state_dict: the keys,
+    shapes, dtypes and bytes of the JAX CLI's ``.npz`` for the same
+    checkpoint (its EMA weights; ``num_batches_tracked`` int64 0-d)."""
+    ckpt = str(tmp_path / "tc.msgpack")
+    _jax_torch_compat_checkpoint(ckpt)
+    want_path, got_path = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jax_torch_export.main(["--checkpoint", ckpt, "--out", want_path])
+    torch_reference.main(["--checkpoint", ckpt, "--out", got_path])
+    assert "wrote 64 tensors" in capsys.readouterr().out
+    want, got = np.load(want_path), np.load(got_path)
+    assert list(got.files) == list(want.files) and len(want.files) == 64
+    for key in want.files:
+        a, b = got[key], want[key]
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), key
+    assert got["encoder.0.1.num_batches_tracked"].dtype == np.int64
+    assert int(got["encoder.0.1.num_batches_tracked"]) == 9
+
+
+def test_export_cli_refuses_no_ema(tmp_path, capsys):
+    """The JAX CLI always exports the EMA weights and has no ``--no-ema``;
+    neither has the port's."""
+    with pytest.raises(SystemExit) as exc:
+        torch_reference.main(["--checkpoint", str(tmp_path / "c.pt"), "--out", str(tmp_path / "r.pt"), "--no-ema"])
+    assert exc.value.code == 2 and "--no-ema" in capsys.readouterr().err
