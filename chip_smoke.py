@@ -173,14 +173,23 @@ From the repository root. It
    the CPU; (iv) ``examples/torch_end_to_end.py`` (64 files, 2 epochs) and
    ``examples/torch_migrate_from_reference.py`` on the card, each exiting
    0; (v) the phase's seconds;
-16. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
+16. reads YAML without PyYAML (blocked for the phase; the GPU machine
+   has none): each ``tests/fixtures/yaml_forms/*.yaml`` through the port's
+   reader, equal to the ``.json`` of what PyYAML's ``safe_load`` returned
+   for it; ``tests/fixtures/folded_block.yaml`` (``configs/folded.yaml``
+   with block sequences, an anchor and a merge key) resolved to the same
+   ``TrainConfig``; both files trained through the train CLI, fused, one
+   epoch, seed 0 (launches from the runs' forwards; first-step losses
+   within 1e-6 relative; K1–K3 against their plain versions at the runs'
+   shapes); the phase's seconds;
+17. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
    accumulated run, ``variant_launches`` for every run of item 10,
    ``model_variant_launches`` for item 11, ``artifact_launches`` for item
    12, ``parallel_launches`` for item 13, ``data_launches`` for the
    ``rrd:`` epoch and the ``--pretrained`` Orbax epoch of item 14,
    ``public_api_launches`` for the registered architecture's epoch of
-   item 15), the card line again, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   item 15, ``config_launches`` for the two epochs of item 16), the card
+   line again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
 without a CUDA device. TF32 is off for every comparison (cuDNN and
@@ -190,6 +199,7 @@ cuBLAS), so f32 on the card is f32.
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import math
 import os
@@ -3190,6 +3200,106 @@ def public_api_phase(dev, root: Path, card: str) -> tuple:
     return counts, errs
 
 
+# ================================================================== config
+
+YAML_FORMS = "tests/fixtures/yaml_forms"  # YAML documents beside the .json of what PyYAML's safe_load returned
+FOLDED_BLOCK = "tests/fixtures/folded_block.yaml"  # configs/folded.yaml in block style, an anchor and a merge key
+
+
+def same_value(a, b) -> bool:
+    """Equal values of the same types: dict keys in the same order, NaN equal
+    to NaN."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_value(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_value(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) and math.isnan(a):
+        return math.isnan(b)
+    return a == b
+
+
+def yaml_forms_check(root: Path, card: str) -> int:
+    """Every YAML form fixture read by the port's reader, equal to the
+    ``.json`` of what PyYAML's ``safe_load`` returned for it. Returns the
+    number of fixtures."""
+    from midi_vae_tpu_torch.train.config import read_yaml
+
+    forms = sorted((root / YAML_FORMS).glob("*.yaml"))
+    check(len(forms) >= 10, f"{len(forms)} YAML form fixtures under {YAML_FORMS}")
+    t0 = time.perf_counter()
+    for path in forms:
+        with open(path.with_suffix(".json"), encoding="utf-8") as f:
+            want = json.load(f)
+        got = read_yaml(str(path))
+        check(same_value(got, want), f"{path.name} read as {got!r}, PyYAML's safe_load as {want!r}")
+    log(f"  {len(forms)} YAML form fixtures read by the port's reader, each equal to its .json "
+        f"({(time.perf_counter() - t0) * 1e3:.1f} ms for all) [{card}]")
+    return len(forms)
+
+
+def first_step_loss(run_dir: Path) -> float:
+    """The loss of a run's first step, from its ``metrics.jsonl``."""
+    with open(run_dir / "metrics.jsonl", encoding="utf-8") as f:
+        row = json.loads(f.readline())
+    check(row["step"] == 1, f"{run_dir}: the first logged step is {row['step']}")
+    return row["training/stepwise/train/loss"]
+
+
+def config_phase(dev, root: Path, card: str) -> tuple:
+    """The port's YAML reader with PyYAML blocked (the card's machine has
+    none): the YAML form fixtures equal to their ``.json``; the block-style
+    ``configs/folded.yaml`` resolved to the flow-style file's
+    ``TrainConfig``; both trained through the train CLI, fused, one epoch,
+    the same seed, their first-step losses within 1e-6 relative; K1–K3
+    against their plain versions at the runs' shapes; the phase's seconds.
+    Returns the launches of both runs and the kernels' errors."""
+    from midi_vae_tpu_torch.train.config import from_yaml
+
+    t_phase = time.perf_counter()
+    has_pyyaml = importlib.util.find_spec("yaml") is not None
+    pyyaml = sys.modules.get("yaml")
+    sys.modules["yaml"] = None  # make sure nothing here reads YAML with PyYAML
+    try:
+        n_forms = yaml_forms_check(root, card)
+        block, flow = root / FOLDED_BLOCK, root / "configs" / "folded.yaml"
+        want, got = from_yaml(str(flow)).to_dict(), from_yaml(str(block)).to_dict()
+        differ = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        check(got == want, f"{FOLDED_BLOCK} resolves otherwise: {differ}")
+        log(f"  {FOLDED_BLOCK} (block sequences, an anchor, a merge key) resolves to configs/folded.yaml's "
+            f"TrainConfig, all {len(want)} keys equal; PyYAML installed here: {has_pyyaml} (blocked for the phase)")
+        tmp = root / "build" / "tmp"  # the midi-synthetic corpus cli_phase generated
+        tmp.mkdir(parents=True, exist_ok=True)
+        tempfile.tempdir = str(tmp)
+        models = root / "build" / "config_models"
+        shutil.rmtree(models, ignore_errors=True)
+        losses, counts = {}, {}
+        for label, path in (("block", block), ("flow", flow)):
+            r, counts[label] = fused_run(
+                ["--config", str(path), "--fused", "--bce-targets", "normalized", "--epochs", "1", "--seed", "0",
+                 "--models-dir", str(models), "--run-name", "config", "--run-id", label],
+                1, f"{path.relative_to(root)}, fused, 1 epoch", card)
+            check(r["config"]["batch_size_per_device"] == CLI_BATCH, f"{label}: batch {r['config']['batch_size_per_device']}")
+            losses[label] = first_step_loss(models / "midi-synthetic" / f"config__{label}")
+        rel = abs(losses["block"] - losses["flow"]) / abs(losses["flow"])
+        log(f"  first-step loss: block style {losses['block']!r}, flow style {losses['flow']!r}, relative difference "
+            f"{rel:.3e} [{card}]")
+        check(math.isfinite(losses["flow"]) and rel <= 1e-6, f"first-step losses differ by {rel:.3e} relative")
+        errs = kernels_at_run_shapes(dev, {"config": run_shape(r, CLI_BATCH)})
+    finally:
+        if pyyaml is None:
+            del sys.modules["yaml"]
+        else:
+            sys.modules["yaml"] = pyyaml
+    total = {}
+    for c in counts.values():
+        add_counts(total, c)
+    log(f"  config phase {time.perf_counter() - t_phase:.1f} s: {n_forms} YAML form fixtures, launches block "
+        f"{counts['block']} + flow {counts['flow']} [{card}]")
+    return total, errs
+
+
 # ==================================================================== main
 
 
@@ -3241,6 +3351,8 @@ def main() -> int:
     data_counts = data_phase(dev, root, card)
     log("public API (installed tree, registered architecture on a PNG folder, rasterize, example twins):")
     public_counts, public_errs = public_api_phase(dev, root, card)
+    log("config (the YAML reader without PyYAML; configs/folded.yaml in block style trained beside it):")
+    config_counts, config_errs = config_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -3262,7 +3374,8 @@ def main() -> int:
                 "parallel_launches": parallel_counts[key],
                 "data_launches": data_counts[key],
                 "public_api_launches": public_counts[key],
-                "max_abs_err": max(errs[key], variant_errs[key], model_errs[key], public_errs[key]),
+                "config_launches": config_counts[key],
+                "max_abs_err": max(errs[key], variant_errs[key], model_errs[key], public_errs[key], config_errs[key]),
                 "ms": ms,
                 "device_ms": device_ms[key],
                 "plain_ms": plain_ms,

@@ -15,11 +15,17 @@ returns:
 - ext type 3 (a numpy scalar, packed as an ndarray) → the numpy scalar;
 - flax's chunked arrays (``{"__msgpack_chunked_array__": True, "shape":
   {...}, "chunks": {...}}``, what it writes for a leaf over 2³⁰ bytes) →
-  the joined array.
+  the joined array;
+- any other ext type → :class:`ExtType` ``(code, data)``, equal to the
+  ``msgpack.ExtType`` flax returns (msgpack's own Timestamp, ext -1, too:
+  flax never writes one);
+- a map key that is not a str or bin raises, as ``msgpack.unpackb``'s
+  ``strict_map_key`` does.
 """
 
 from __future__ import annotations
 
+import collections
 import struct
 from typing import Any, Tuple
 
@@ -27,6 +33,8 @@ import numpy as np
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+
+ExtType = collections.namedtuple("ExtType", "code data")
 
 
 class _Reader:
@@ -58,7 +66,7 @@ class _Reader:
             return complex(real, imag)
         if code == _EXT_NPSCALAR:
             return _ndarray(data)[()]
-        raise ValueError(f"unknown msgpack ext type {code}")
+        return ExtType(code, data)
 
     def value(self) -> Any:
         b = self.take(1)[0]
@@ -99,6 +107,8 @@ class _Reader:
         out = {}
         for _ in range(n):
             key = self.value()
+            if not isinstance(key, (str, bytes)):
+                raise ValueError(f"{type(key).__name__} is not allowed for a map key")
             out[key] = self.value()
         return out
 

@@ -4,17 +4,17 @@
 checkpoint's config dict means the same thing in both packages. The
 device is not a field: ``train.loop.run(config, device=...)`` takes it.
 
-``configs/*.yaml`` are read by :func:`read_yaml`, a reader of the subset
-of YAML those files use (block mappings, plain and quoted scalars, flow
-lists, comments), with PyYAML's ``safe_load`` rules for what a plain
-scalar means; the port does not need PyYAML installed.
+``configs/*.yaml`` are read by :func:`read_yaml`
+(``midi_vae_tpu_torch/io/yaml_read.py``), which returns what the JAX
+package's ``yaml.safe_load`` returns without PyYAML installed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+from midi_vae_tpu_torch.io.yaml_read import read_yaml
 
 
 @dataclasses.dataclass
@@ -167,102 +167,3 @@ def from_yaml(path: str) -> TrainConfig:
             flat["epochs"] = trainer["max_epochs"]
         return TrainConfig.from_dict(flat)
     return TrainConfig.from_dict(raw)
-
-
-# ------------------------------------------------------------- YAML subset
-
-# PyYAML's YAML 1.1 resolvers for plain scalars (the forms configs use)
-_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
-_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON|off|Off|OFF)$")
-_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
-_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9_]+(?:[eE][-+][0-9]+)?)$")
-_INF_NAN = re.compile(r"^(?:[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
-
-
-def _scalar(text: str) -> Any:
-    s = text.strip()
-    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
-        body = s[1:-1]
-        return body.replace("''", "'") if s[0] == "'" else bytes(body, "utf-8").decode("unicode_escape")
-    if _NULL.match(s):
-        return None
-    if _BOOL.match(s):
-        return s.lower() in ("yes", "true", "on")
-    if _INT.match(s):
-        return int(s.replace("_", ""))
-    if _FLOAT.match(s):
-        return float(s.replace("_", ""))
-    if _INF_NAN.match(s):
-        return float(s.lower().replace(".", ""))
-    return s
-
-
-def _strip_comment(line: str) -> str:
-    """Drop a ``#`` comment (one at the line's start or after whitespace,
-    outside quotes)."""
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i]
-    return line
-
-
-def _value(text: str) -> Any:
-    s = text.strip()
-    if s.startswith("["):
-        if not s.endswith("]"):
-            raise ValueError(f"unsupported YAML flow sequence: {s!r}")
-        inner = s[1:-1].strip()
-        return [_scalar(v) for v in inner.split(",")] if inner else []
-    if s.startswith(("{", "&", "*", "!", "|", ">")):
-        raise ValueError(f"unsupported YAML value: {s!r}")
-    return _scalar(s)
-
-
-def _parse_block(lines: List[Tuple[int, str]], start: int, indent: int) -> Tuple[Dict[str, Any], int]:
-    out: Dict[str, Any] = {}
-    i = start
-    while i < len(lines):
-        ind, text = lines[i]
-        if ind < indent:
-            break
-        if ind > indent:
-            raise ValueError(f"unexpected indentation in YAML line {text!r}")
-        key, sep, rest = text.partition(":")
-        if not sep or (rest and not rest[0].isspace()):
-            raise ValueError(f"unsupported YAML line {text!r} (block mappings only)")
-        key = _scalar(key)
-        if rest.strip():
-            out[key] = _value(rest)
-            i += 1
-        elif i + 1 < len(lines) and lines[i + 1][0] > ind:
-            out[key], i = _parse_block(lines, i + 1, lines[i + 1][0])
-        else:
-            out[key] = None
-            i += 1
-    return out, i
-
-
-def read_yaml(path: str) -> Optional[Dict[str, Any]]:
-    """Parse a YAML file of nested block mappings into dicts; ``None`` for
-    an empty document, as ``yaml.safe_load``."""
-    lines = []
-    with open(path) as f:
-        for raw in f:
-            text = _strip_comment(raw.rstrip("\n")).rstrip()
-            if not text.strip() or text.strip() in ("---", "..."):
-                continue
-            if "\t" in text[: len(text) - len(text.lstrip())]:
-                raise ValueError(f"tab indentation in {path}")
-            lines.append((len(text) - len(text.lstrip(" ")), text.strip()))
-    if not lines:
-        return None
-    out, end = _parse_block(lines, 0, lines[0][0])
-    if end != len(lines):
-        raise ValueError(f"could not parse {path} past line {lines[end][1]!r}")
-    return out

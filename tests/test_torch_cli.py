@@ -46,8 +46,12 @@ def test_reference_yaml_schema_and_scalars_match_jax(tmp_path):
     (tmp_path / "empty.yaml").write_text("# nothing\n")
     assert read_yaml(str(tmp_path / "empty.yaml")) is None
     assert from_yaml(str(tmp_path / "empty.yaml")) == TrainConfig()
-    (tmp_path / "bad.yaml").write_text("a: {b: 1}\n")
-    with pytest.raises(ValueError, match="unsupported"):
+    (tmp_path / "flow.yaml").write_text("a: {b: 1}\n")  # the first reader refused flow mappings (F4)
+    assert read_yaml(str(tmp_path / "flow.yaml")) == yaml.safe_load("a: {b: 1}\n") == {"a": {"b": 1}}
+    (tmp_path / "bad.yaml").write_text("a: {b: 1\n")
+    with pytest.raises(yaml.YAMLError):
+        yaml.safe_load("a: {b: 1\n")
+    with pytest.raises(ValueError, match="bad.yaml, line 2: "):
         read_yaml(str(tmp_path / "bad.yaml"))
 
 

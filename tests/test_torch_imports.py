@@ -147,3 +147,36 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
     assert len(imported) >= 50
     modules = _VARIANT_MODULES + _ARTIFACT_MODULES + _ORBAX_READER_MODULES
     assert {"midi_vae_tpu_torch." + m[:-3].replace("/", ".") for m in modules} <= set(imported)
+
+
+# the port's own stand-ins for libraries the GPU machine lacks (PyYAML, flax's msgpack) and the readers
+# held against the JAX package's copies (the npy wire, the SMF parsers)
+_STANDIN_MODULES = ("io/yaml_read.py", "io/flax_msgpack.py", "serving/wire.py", "midi/smf.py", "native/midiparse.py")
+
+
+def test_standin_modules_are_among_the_guarded_sources():
+    guarded = {p.relative_to(_REPO / "midi_vae_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(_STANDIN_MODULES) <= guarded
+
+
+def test_configs_and_checkpoints_read_with_pyyaml_msgpack_and_flax_blocked():
+    """What the GPU machine does without PyYAML, msgpack or flax: every
+    ``configs/*.yaml`` through ``from_yaml``, every YAML form fixture equal
+    to its ``.json``, and the JAX ``.msgpack`` fixture decoded."""
+    code = (
+        "import glob, json, math, sys\n"
+        f"for name in {_FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from midi_vae_tpu_torch.train.config import from_yaml, read_yaml\n"
+        "from midi_vae_tpu_torch.io import flax_msgpack\n"
+        "configs = [from_yaml(p) for p in sorted(glob.glob('configs/*.yaml'))]\n"
+        "block = from_yaml('tests/fixtures/folded_block.yaml')\n"
+        "assert len(configs) >= 10 and block == from_yaml('configs/folded.yaml')\n"
+        "forms = sorted(glob.glob('tests/fixtures/yaml_forms/*.yaml'))\n"
+        "same = lambda a, b: (json.dumps(a, sort_keys=False) == json.dumps(b, sort_keys=False))\n"
+        "assert forms and all(same(read_yaml(p), json.load(open(p[:-5] + '.json'))) for p in forms)\n"
+        "tree = flax_msgpack.load('tests/fixtures/jax_folded_lines28.msgpack')\n"
+        "print(len(configs), len(forms), sorted(tree)[:2])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

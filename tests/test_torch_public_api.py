@@ -236,3 +236,93 @@ def test_importing_native_and_midi_builds_nothing(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "built" not in out.stdout and out.stdout.strip().endswith("cached 0")
     assert not build.exists()
+
+
+# ------------------------------------------------------------- surface guard
+
+# JAX public names the port keeps under another module: JAX "module.name" →
+# port "module.name", each with the reason
+RELOCATED = {
+    "native.rrd.write_rrd": ("data.sources.write_rrd", "the RRD format is numpy; the port's streams read it there"),
+    "native.rrd.read_rrd": ("data.sources.read_rrd", "beside write_rrd and the RRD streams"),
+    "interop.torch_export.export_reference_state_dict": (
+        "interop.torch_reference.export_reference_state_dict", "both directions of the reference state_dict"),
+    "interop.torch_export.main": ("interop.torch_reference.main", "the export CLI of that module"),
+    "interop.torch_import.import_reference_state_dict": (
+        "interop.torch_reference.import_reference_state_dict", "both directions of the reference state_dict"),
+    "interop.torch_import.flatten_permutation": ("interop.torch_reference.flatten_permutation",
+                                                 "the flatten order both directions use"),
+    "io.orbax_io.save_checkpoint_orbax": ("io.dcp_io.save_checkpoint_dcp",
+                                          "--checkpoint-backend orbax writes torch.distributed.checkpoint files"),
+    "io.orbax_io.OrbaxAsyncWriter": ("io.dcp_io.DCPAsyncWriter", "the async writer of those files"),
+    "io.orbax_io.load_checkpoint_orbax": ("io.dcp_io.load_checkpoint_dcp",
+                                          "reads DCP directories, and JAX Orbax ones through io/orbax_read.py"),
+    "io.orbax_io.is_orbax_checkpoint": ("io.dcp_io.is_orbax_checkpoint", "beside the loader"),
+}
+
+# JAX public names with no meaning in torch (ROADMAP Queue 1, item 18), each with the reason
+JAX_ONLY = {
+    "core.rng.root_key": "a JAX PRNG key; the port seeds torch generators from the same integer seeds",
+    "core.rng.epoch_key": "a JAX PRNG key of an epoch; the port derives integer epoch seeds",
+    "data.pipeline.put_sharded": "places a host batch on a jax.sharding; the port's loaders copy to the rank's device",
+    "parallel.mesh.batch_sharding": "a jax.sharding.NamedSharding; torch.distributed ranks hold their own rows",
+    "parallel.mesh.data_axes": "names of jax.sharding mesh axes; the port's Mesh keeps one process group per axis",
+    "parallel.mesh.replicated": "a replicated jax.sharding; torch tensors are replicated by each rank holding them",
+    "parallel.mesh.shard_batch": "jax.device_put onto a sharding; the port's mesh.local_rows cuts a rank's rows",
+    "parallel.collectives.psum_mean": "a lax collective under shard_map; the port's in-place psum_mean_ replaces it",
+    "models.vae.init_stats": "flax's batch_stats collection at init; torch modules own their running buffers",
+    "train.state.accumulate_grads": "the port builds accumulation into make_train_step(grad_accum=)",
+    "cli.train_prior.make_chunk_step": "a lax.scan of prior steps; the port's --scan-steps sets its host-read interval",
+    "models.prior.make_prior_train_step": "a jitted flax step; cli/train_prior.py steps the port's module",
+    "native._build.load_library": "JAX falls back to Python when a build fails; the port's build raises instead",
+    "native.rrd.native_available": "the port raises when the host library cannot be built, so none asks",
+    "native.midiparse.native_midiparse_available": "the port raises when the library cannot be built, so none asks",
+}
+
+
+def _jax_public_names():
+    """``(module, name)`` of every public function and class the JAX
+    package's Python modules define (names they import are skipped)."""
+    import importlib
+    import importlib.util
+    import inspect
+    import pkgutil
+
+    out = []
+    for info in pkgutil.walk_packages(midi_vae_tpu.__path__, "midi_vae_tpu."):
+        if not importlib.util.find_spec(info.name).origin.endswith(".py"):
+            continue  # a host library the JAX package built beside its sources
+        module = importlib.import_module(info.name)
+        for name, obj in vars(module).items():
+            if not name.startswith("_") and (inspect.isfunction(obj) or inspect.isclass(obj)) \
+                    and obj.__module__ == info.name:
+                out.append((info.name[len("midi_vae_tpu."):], name))
+    return out
+
+
+def _port_object(path: str):
+    import importlib
+
+    module, _, name = path.rpartition(".")
+    try:
+        return getattr(importlib.import_module("midi_vae_tpu_torch." + module), name, None)
+    except ModuleNotFoundError:
+        return None
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart_in_the_port():
+    names = _jax_public_names()
+    assert len(names) > 150
+    unmatched = []
+    for module, name in names:
+        key = f"{module}.{name}"
+        if _port_object(key) is not None:
+            assert key not in RELOCATED and key not in JAX_ONLY, f"{key} is in the port: drop it from the tables"
+        elif key in RELOCATED:
+            assert _port_object(RELOCATED[key][0]) is not None, f"{key} moved to {RELOCATED[key][0]}, which is missing"
+        elif key not in JAX_ONLY:
+            unmatched.append(key)
+    assert not unmatched, f"JAX public names the port lacks: {unmatched}"
+    listed = {f"{m}.{n}" for m, n in names}
+    assert set(RELOCATED) <= listed and set(JAX_ONLY) <= listed, "a table names something the JAX package lacks"
+    assert all(reason for _, reason in RELOCATED.values()) and all(JAX_ONLY.values())
