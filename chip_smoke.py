@@ -182,14 +182,27 @@ From the repository root. It
    epoch, seed 0 (launches from the runs' forwards; first-step losses
    within 1e-6 relative; K1–K3 against their plain versions at the runs'
    shapes); the phase's seconds;
-17. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
+17. replays the JAX package's flagship run (``tests/fixtures/
+   trajectory_folded_fold8.npz``/``.json``, recorded on the CPU by
+   ``tests/fixtures/make_trajectory.py``) through the train CLI, fused,
+   in float32 and then bfloat16: the seeded init rebuilt with numpy (its
+   checksum checked) and saved as a port checkpoint for ``--pretrained``,
+   the fixture's step, eval and augmentation draws injected, and every
+   ``metrics.jsonl`` row, the counters, the final sweeps and every final
+   leaf's sum and L2 norm held to the fixture within ``TRAJECTORY_TOL``;
+   each float32 step held to the same step recomputed in f64 on the card
+   (``F64_RTOL``); K1 and K2 once per step, K3 only for the reconstruction grids (the
+   replayed draws take the plain reparameterization), K3-bwd never; each
+   step's relative errors and the phase's seconds;
+18. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
    accumulated run, ``variant_launches`` for every run of item 10,
    ``model_variant_launches`` for item 11, ``artifact_launches`` for item
    12, ``parallel_launches`` for item 13, ``data_launches`` for the
    ``rrd:`` epoch and the ``--pretrained`` Orbax epoch of item 14,
    ``public_api_launches`` for the registered architecture's epoch of
-   item 15, ``config_launches`` for the two epochs of item 16), the card
-   line again, and as the last line ``{"ok": true, "device": {...}}``.
+   item 15, ``config_launches`` for the two epochs of item 16,
+   ``trajectory_launches`` for the two runs of item 17), the card line
+   again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
 without a CUDA device. TF32 is off for every comparison (cuDNN and
@@ -3300,6 +3313,201 @@ def config_phase(dev, root: Path, card: str) -> tuple:
     return total, errs
 
 
+# ============================================================== trajectory
+
+TRAJECTORY_FIXTURE = "tests/fixtures/trajectory_folded_fold8"  # .npz and .json: the JAX run to replay
+TRAJECTORY_REPLAY = "tests/fixtures/trajectory_replay.py"  # the seeded init, the replay, the row comparison
+# the card's run against the JAX run recorded on the CPU, by dtype (PERF.md §6 gives their reasons):
+# stepwise values (rtol, atol), eval rows and final sweeps (rtol, atol), leaves' sums and L2 norms (rtol)
+TRAJECTORY_TOL = {
+    "float32": dict(step_rtol=1e-4, step_atol=1e-6, key_rtol={"loss_kld": 2e-2, "grad_norm": 5e-3},
+                    eval_rtol=5e-3, eval_atol=1e-5, leaf_rtol=5e-2),
+    "bfloat16": dict(step_rtol=1e-2, step_atol=1e-4, key_rtol={"loss_kld": 1e-1, "grad_norm": 5e-2},
+                     eval_rtol=5e-2, eval_atol=1e-4, leaf_rtol=2e-1),
+}
+
+
+# the card's f32 step against the same step recomputed in f64 on the card (loss, reconstruction, KL loss,
+# grad norm; PERF.md §6)
+F64_RTOL = 1e-4
+
+
+def load_trajectory_replay(root: Path):
+    """``tests/fixtures/trajectory_replay.py`` (numpy, torch and the port only)."""
+    spec = importlib.util.spec_from_file_location("trajectory_replay", root / TRAJECTORY_REPLAY)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses resolve their annotations there
+    spec.loader.exec_module(module)
+    return module
+
+
+def trajectory_init(tr, meta: dict, path: Path) -> None:
+    """The fixture's seeded init rebuilt from the port's model (its checksum
+    checked) and saved at ``path`` as a checkpoint of the port."""
+    from midi_vae_tpu_torch.interop.from_jax import load_flax_variables
+    from midi_vae_tpu_torch.io.checkpoint import save_checkpoint
+
+    model = build_model("FoldedVAE", device="cpu", **FLAGSHIP)
+    leaves = tr.init_leaves(tr.port_shapes(model), meta["init_seed"])
+    # the f64 sums may round apart in the last bits across machines; a changed stream moves them by far more
+    check(abs(tr.checksum(leaves) - meta["init_checksum"]) <= 1e-9 * meta["init_checksum"],
+          f"init checksum {tr.checksum(leaves)!r}, the fixture's {meta['init_checksum']!r}: numpy's stream changed")
+    trees = tr.nest(leaves)
+    load_flax_variables(model, trees["params"], trees["batch_stats"])
+    save_checkpoint(str(path), {"model": model.state_dict()}, epoch=0)
+
+
+def leaf_errors(tr, model, want: dict, rtol: float, cancelled: float) -> tuple:
+    """Each final leaf's sum and L2 norm against the fixture's; the
+    BN-cancelled conv biases and the running means after them within
+    ``cancelled`` per element. Returns (mismatches, largest relative error
+    of the other leaves)."""
+    got = tr.leaf_stats(model)
+    numel = {"/".join((c,) + p): model.state_dict()[n].numel() for n, (c, p) in tr.flax_name_map(model).items()}
+    check(sorted(got) == sorted(want), f"leaves differ: {sorted(set(got) ^ set(want))}")
+    errors, worst = [], 0.0
+    for path, (w_sum, w_l2) in want.items():
+        g_sum, g_l2 = got[path]
+        keys = path.split("/")
+        if "Block_" in path and (keys[-1] == "mean" or (keys[-1] == "bias" and keys[-2].startswith("Conv"))):
+            if abs(g_sum - w_sum) > cancelled * numel[path] or abs(g_l2 - w_l2) > cancelled * math.sqrt(numel[path]):
+                errors.append(f"{path}: sum {g_sum!r} l2 {g_l2!r}, fixture {w_sum!r} {w_l2!r} (cancelled, {cancelled:.3g})")
+            continue
+        rel = max(abs(g_sum - w_sum) / max(abs(w_sum), w_l2), abs(g_l2 - w_l2) / w_l2)
+        worst = max(worst, rel)
+        if rel > rtol:
+            errors.append(f"{path}: sum {g_sum!r} l2 {g_l2!r}, fixture {w_sum!r} {w_l2!r}")
+    return errors, worst
+
+
+def trajectory_run(tr, meta: dict, arrays: dict, dtype: str, init: Path, models: Path, dev, card: str) -> dict:
+    """One dtype of the fixture replayed through the train CLI on the card;
+    returns its launch counts."""
+    from midi_vae_tpu_torch.cli import train as train_cli
+    from midi_vae_tpu_torch.data import fetch
+    from midi_vae_tpu_torch.midi import rasterize
+    from midi_vae_tpu_torch.train import loop
+
+    from midi_vae_tpu_torch.train.state import make_loss
+
+    want, tol = meta["runs"][dtype], TRAJECTORY_TOL[dtype]
+    draws = tr.Draws(train=[[e] for e in arrays[f"{dtype}_train_eps"]], eval=[list(arrays[f"{dtype}_eval_eps"])])
+    replay_train_step, make_eval_step = tr.port_replayers(draws, loop.make_train_step, loop.make_eval_step, device=dev)
+    aug = tr.port_aug_replayer(rasterize.augment_pianoroll_batch,
+                               lambda k, b: (arrays["aug_dp"][k], arrays["aug_dt"][k], arrays["aug_scale"][k]))
+    f64 = []  # the f32 run's steps recomputed in f64 on the card: the yardstick the CPU reference cannot be
+
+    def make_train_step(kl_schedule, **kw):
+        step = replay_train_step(kl_schedule, **kw)
+        plain_elbo = make_loss()  # the plain ELBO: K1 and K2 do not take f64, and the function is the same
+
+        def checked(state, x, epoch_seed, **rest):
+            if dtype == "float32":
+                eps = torch.from_numpy(draws.train[len(f64)][0]).to(dev)
+                f64.append(tr.f64_step_terms(state.model, x, eps, kl_schedule(state.step), plain_elbo))
+            return step(state, x, epoch_seed, **rest)
+
+        return checked
+
+    saved = (loop.make_train_step, loop.make_eval_step, rasterize.augment_pianoroll_batch, fetch.SYNTHETIC_SIZES)
+    loop.make_train_step, loop.make_eval_step, rasterize.augment_pianoroll_batch = make_train_step, make_eval_step, aug
+    fetch.SYNTHETIC_SIZES = {**fetch.SYNTHETIC_SIZES, "midi-synthetic": meta["synthetic_files"]}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        r = train_cli.cli(meta["argv"] + meta["dtypes"][dtype] + ["--pretrained", str(init), "--models-dir",
+                                                                  str(models), "--run-id", dtype])
+    finally:
+        loop.make_train_step, loop.make_eval_step, rasterize.augment_pianoroll_batch, fetch.SYNTHETIC_SIZES = saved
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps, f = r["total_step"], r["forwards"]
+    log_cli_run(f"the JAX fixture's {dtype} run replayed, fused", r, card)
+    want_counts = {"K1": steps, "K2": steps, "K3": f["grid"], "K3-bwd": 0}
+    log(f"  launches {counts}, expected {want_counts}: K1 and K2 once per step; K3 only for the {f['grid']} "
+        "reconstruction grids, whose draw is not replayed (the steps and sweeps take the fixture's draws through "
+        "the plain reparameterization, so K3 and its backward stay out of them; k3_phase holds K3)")
+    check(counts == want_counts, f"{dtype}: launched {counts}, expected {want_counts}")
+    check(replay_train_step.used == len(draws.train) and make_eval_step.used == len(draws.eval[0])
+          and aug.calls == steps, f"{dtype}: replayed {replay_train_step.used} step draws, {make_eval_step.used} eval "
+          f"draws, {aug.calls} augmentations of {len(draws.train)}, {len(draws.eval[0])}, {steps}")
+    run_dir = Path(r["config"]["model_output_dir"])
+    with open(run_dir / "metrics.jsonl", encoding="utf-8") as fh:
+        rows = [json.loads(line) for line in fh]
+    files = sorted(os.path.splitext(n)[0] for n in os.listdir(run_dir))
+    step_rows = [(g, w) for g, w in zip(rows, want["rows"]) if "training/stepwise/train/loss" in w]
+    for g, w in step_rows:
+        errs = {k: abs(g[f"training/stepwise/train/{k}"] - w[f"training/stepwise/train/{k}"])
+                / abs(w[f"training/stepwise/train/{k}"]) for k in ("loss", "loss_recon", "loss_kld", "grad_norm")}
+        log(f"    step {w['step']:2d}: loss {g['training/stepwise/train/loss']!r} (JAX {w['training/stepwise/train/loss']!r}); "
+            "relative error " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if f64:
+        keys = ("loss", "loss_recon", "loss_kld", "grad_norm")
+        got = np.array([[g[f"training/stepwise/train/{k}"] for k in keys] for g, _ in step_rows])
+        rel = np.abs(got - np.array(f64)) / np.abs(np.array(f64))
+        log(f"  {dtype} steps against the same steps in f64 on the card, relative error by step: "
+            + "; ".join(f"{k} " + " ".join(f"{v:.1e}" for v in rel[:, i]) for i, k in enumerate(keys)))
+        check(rel.max() <= F64_RTOL, f"{dtype}: a step is {rel.max():.3e} off its f64 recomputation (limit {F64_RTOL})")
+    errors, worst = tr.row_errors(rows, want["rows"], step_rtol=tol["step_rtol"], step_atol=tol["step_atol"],
+                                  eval_rtol=tol["eval_rtol"], eval_atol=tol["eval_atol"], key_rtol=tol["key_rtol"])
+    for key in ("total_step", "n_samples_seen", "best_epoch"):
+        if r[key] != want[key]:
+            errors.append(f"{key} {r[key]}, JAX {want[key]}")
+    if files != want["files"]:
+        errors.append(f"run directory {files}, JAX {want['files']}")
+    for part in ("final_test", "final_train"):
+        for key, v in want[part].items():
+            g = r[part][key]
+            if "throughput" in key:
+                continue
+            if isinstance(v, int) and not isinstance(v, bool) and key in ("count", "active-units"):
+                if g != v:
+                    errors.append(f"{part} {key} {g}, JAX {v}")
+            elif abs(g - v) > tol["eval_atol"] + tol["eval_rtol"] * abs(v):
+                errors.append(f"{part} {key} {g!r}, JAX {v!r}")
+            worst[f"{part}/{key}"] = abs(g - v) / max(abs(v), 1e-30)
+    lr_sum = sum(max(v for k, v in w.items() if "/lr-" in k) for _, w in step_rows)
+    leaf_errs, leaf_worst = leaf_errors(tr, r["state"].model, want["leaves"], tol["leaf_rtol"], 2.0 * lr_sum)
+    errors += leaf_errs
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  {dtype}: {len(rows)} rows key for key; largest relative errors " + ", ".join(f"{k} {v:.3e}" for k, v in top)
+        + f"; leaves {leaf_worst:.3e} (cancelled biases within 2·Σlr = {2.0 * lr_sum:.4g}); best epoch {r['best_epoch']} "
+        f"(JAX {want['best_epoch']}); tolerances {tol}; {seconds:.1f} s [{card}]")
+    check(not errors, f"{dtype} run differs from the JAX fixture: " + "; ".join(errors[:12]))
+    return counts
+
+
+def trajectory_phase(dev, root: Path, card: str) -> dict:
+    """The JAX package's flagship run (``tests/fixtures/make_trajectory.py``)
+    replayed through the port's train CLI on the card, ``--fused`` with TF32
+    off, in float32 and then bfloat16: the seeded init rebuilt from numpy,
+    the fixture's step, eval and augmentation draws injected, every
+    ``metrics.jsonl`` row, the counters, the final sweeps and every final
+    leaf held to the fixture within ``TRAJECTORY_TOL``. Returns the launches
+    of both runs."""
+    tr = load_trajectory_replay(root)
+    t_phase = time.perf_counter()
+    with open(root / (TRAJECTORY_FIXTURE + ".json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    with np.load(root / (TRAJECTORY_FIXTURE + ".npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    tmp = root / "build" / "tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    tempfile.tempdir = str(tmp)
+    models = root / "build" / "trajectory_models"
+    shutil.rmtree(models, ignore_errors=True)
+    models.mkdir(parents=True)
+    init = models / "init.pt"
+    trajectory_init(tr, meta, init)
+    log(f"  init rebuilt from seed {meta['init_seed']} (checksum {meta['init_checksum']!r}, as recorded); fixture "
+        f"from JAX {meta['jax']}, {meta['synthetic_files']} midi-synthetic files")
+    total = {}
+    for dtype in ("float32", "bfloat16"):  # f32 first: its tolerances are the tight ones
+        add_counts(total, trajectory_run(tr, meta, arrays, dtype, init, models, dev, card))
+    log(f"  trajectory phase {time.perf_counter() - t_phase:.1f} s, launches {total} [{card}]")
+    return total
+
+
 # ==================================================================== main
 
 
@@ -3353,6 +3561,8 @@ def main() -> int:
     public_counts, public_errs = public_api_phase(dev, root, card)
     log("config (the YAML reader without PyYAML; configs/folded.yaml in block style trained beside it):")
     config_counts, config_errs = config_phase(dev, root, card)
+    log("trajectory (the JAX package's flagship run replayed step by step, float32 and bfloat16):")
+    trajectory_counts = trajectory_phase(dev, root, card)
 
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
@@ -3375,6 +3585,7 @@ def main() -> int:
                 "data_launches": data_counts[key],
                 "public_api_launches": public_counts[key],
                 "config_launches": config_counts[key],
+                "trajectory_launches": trajectory_counts[key],
                 "max_abs_err": max(errs[key], variant_errs[key], model_errs[key], public_errs[key], config_errs[key]),
                 "ms": ms,
                 "device_ms": device_ms[key],

@@ -47,7 +47,7 @@ def scale_lr(lr_relative: float, global_batch_size: int) -> float:
 
 class OptimizerBundle(NamedTuple):
     optimizer: torch.optim.Optimizer
-    lr_schedules: Dict[str, Schedule]  # group name → schedule, for the groups being trained
+    lr_schedules: Dict[str, Schedule]  # group name → schedule (a frozen group's is 0.0)
     b1_schedule: Optional[Schedule]  # OneCycle β1 cycle, or None for a fixed β1
     grad_clip: Optional[float]  # global-norm clip over the trainable parameters
 
@@ -211,7 +211,8 @@ def build_optimizer(
 
     ``label_fn`` maps a dotted parameter name to "encoder" or "decoder".
     A frozen encoder's parameters are left out of the optimizer (they keep
-    their gradients, which count in the logged norm as in the JAX step).
+    their gradients, which count in the logged norm as in the JAX step);
+    its schedule is the constant 0.0, which the loop logs as ``lr-encoder``.
     """
     key = optimizer.lower()
     if key != "adamw" and key not in OPTAX_RULES:
@@ -228,6 +229,8 @@ def build_optimizer(
     groups = []
     for group, mult in group_mults.items():
         if group == "encoder" and freeze_encoder:
+            # logged at 0.0, as the JAX package keeps a frozen group in its LR log
+            schedules[group] = lr_schedule("constant", 0.0, total_steps)
             continue
         schedules[group] = lr_schedule(scheduler, lr * mult, total_steps)
         if group_params[group]:
