@@ -4,7 +4,8 @@ The same metric namespaces (``training/stepwise/*``,
 ``training/epochwise/*``, ``eval/{test,val,train}/*``) go to a
 ``metrics.jsonl`` file in the run directory and, when asked for, to
 wandb (which must then be importable). ``PhaseTimer`` splits a step
-loop's host time into named phases. :func:`write_png` writes image grids
+loop's host time into named phases, traced as ranges while a profiler
+records. :func:`write_png` writes image grids
 (reconstructions, generated samples) without an imaging library.
 """
 
@@ -21,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from midi_vae_tpu_torch.io import tracing
 from midi_vae_tpu_torch.parallel.mesh import is_leader
 
 
@@ -33,13 +35,26 @@ def generate_id(length: int = 8) -> str:
 class PhaseTimer:
     """Wall-clock phase durations within a step loop: :meth:`mark` at each
     phase boundary; :meth:`durations` sums the seconds between consecutive
-    marks under the earlier mark's name."""
+    marks under the earlier mark's name.
+
+    While a profiler records, each mark also closes the open phase's
+    range and opens ``train.<name>`` (``io/tracing.py``); :meth:`close`
+    ends the last one. :meth:`reset` clears the sums, not the open range."""
 
     def __init__(self):
         self._marks = []
+        self._open = None
 
     def mark(self, name: str) -> None:
+        self.close()
+        self._open = tracing.span("train." + name)
+        self._open.__enter__()
         self._marks.append((name, time.perf_counter()))
+
+    def close(self) -> None:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
 
     def durations(self) -> Dict[str, float]:
         out: Dict[str, float] = {}

@@ -1,0 +1,65 @@
+"""Spans and counters inside the training step, on the profiler's clock.
+
+A span is on exactly while a ``torch.profiler`` session records
+(``torch.autograd._profiler_enabled()``): the train CLI's
+``--profile-dir`` epochs, or any caller's own profiled stretch. There is
+no flag of its own. Off, :func:`span` costs that one check and returns a
+shared null context: no autograd node, no allocation.
+
+On, a span is a ``torch.profiler.record_function(name)`` range, so it
+lands in the same trace as the kernels, as a ``user_annotation`` on the
+thread that opened it, nested under whatever range was open there. A span
+records nothing on the device: it adds no kernel, event or
+synchronisation to the step.
+
+Spans and counters of the port (PERF.md §3 says which metric reads each):
+
+- ``train.step``: ``train/state.py`` ``step``, the whole body;
+- ``model.norm``: ``models/vae.py`` ``apply_norm``, every norm kind, the
+  forward only (a range around the backward needs gradient hooks, whose
+  host time, 1-3 ms a step of the folded model on an H100 host, shows in
+  the device's idle share);
+- ``train.dataloader``, ``train.device_step``, ``train.logging``: the
+  epoch loop's phases (``PhaseTimer`` in ``io/logging.py``);
+- counters ``train.steps`` and ``train.host_syncs``: folded in once an
+  epoch from ``train_one_epoch``'s own counts; counters always count.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict
+
+import torch
+
+_NULL = contextlib.nullcontext()
+_counters: Dict[str, int] = {}
+_lock = threading.Lock()
+
+
+def enabled() -> bool:
+    """True while a profiler records, the only time spans are on."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str):
+    """The range ``name`` while a profiler records, else a shared null context."""
+    return torch.profiler.record_function(name) if enabled() else _NULL
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    with _lock:
+        return dict(_counters)
+
+
+def reset() -> None:
+    """Forget the counters."""
+    with _lock:
+        _counters.clear()

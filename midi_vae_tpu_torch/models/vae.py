@@ -67,6 +67,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
+from midi_vae_tpu_torch.io import tracing
 from midi_vae_tpu_torch.ops.fused_elbo import fused_reparam_kl
 from midi_vae_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 
@@ -425,8 +426,12 @@ def add_norm(block: nn.Module, norm: str, features: int, dtype: torch.dtype) -> 
 
 
 def apply_norm(block: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
-    """``block``'s normalization sublayer (:func:`add_norm`) applied to ``x``."""
-    return x if block.norm_name is None else getattr(block, block.norm_name)(x, train)
+    """``block``'s normalization sublayer (:func:`add_norm`) applied to ``x``,
+    traced as ``model.norm`` while a profiler records (``io/tracing.py``)."""
+    if block.norm_name is None:
+        return x
+    with tracing.span("model.norm"):
+        return getattr(block, block.norm_name)(x, train)
 
 
 class ConvBlock(nn.Module):

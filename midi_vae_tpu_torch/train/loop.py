@@ -62,6 +62,7 @@ from midi_vae_tpu_torch.evaluation.disentanglement import mig_from_loader
 from midi_vae_tpu_torch.evaluation.evaluate import evaluate, make_eval_step
 from midi_vae_tpu_torch.evaluation.inference import reconstruction_grid
 from midi_vae_tpu_torch.evaluation.iwae import iwae_bound
+from midi_vae_tpu_torch.io import tracing
 from midi_vae_tpu_torch.io.checkpoint import (
     CHECKPOINT_LATEST,
     FLAX_STATE,
@@ -724,7 +725,9 @@ def train_one_epoch(
     time by phase (``phase_s``): ``dataloader`` (waiting for the next
     batch), ``device_step`` (issuing the step, and waiting for the device
     at log points), ``logging``, and ``host_syncs``, the epoch's reads of
-    device values.
+    device values. While a profiler records, the phases are the ranges
+    ``train.<phase>`` (``io/tracing.py``); every epoch adds its steps and
+    host reads to the counters ``train.steps`` and ``train.host_syncs``.
 
     ``config.scan_steps`` > 1 over a device-resident corpus runs the epoch
     in chunks (:func:`_train_one_epoch_scan`); over a host-fed one it falls
@@ -766,56 +769,61 @@ def train_one_epoch(
 
     batches = iter(loader.epoch(epoch))
     batch_idx = -1
-    while True:
-        timer.mark("dataloader")
-        batch = next(batches, None)
-        if batch is None:
-            break
-        batch_idx += 1
-        timer.mark("device_step")
-        state, lo, grad_norm = train_step(state, batch.x, epoch_seed, y=batch.y)
-        if forwards is not None:
-            forwards["train_steps"] += 1
-            forwards["train_forwards"] += config.grad_accum
-        loss_sum += lo.loss.float()
-        n_samples_seen += world_batch
-        steps_since_log += 1
-
-        is_print = batch_idx <= 2 or batch_idx % print_interval == 0 or batch_idx >= num_batches - 1
-        is_log = batch_idx % config.log_interval == 0
-        if epoch <= 1 and batch_idx == 0:
-            print("stimuli.shape =", tuple(batch.x.shape))
-            print("loss.shape    =", tuple(lo.loss.shape) or "scalar")
-            print("loss =", float(lo.loss))
-            host_syncs += 1
-        if is_print or is_log:
-            host_syncs += 1
-            step_now = state.step
-            loss_f, kld_f, w_f = float(lo.loss), float(lo.kld_loss), float(lo.kld_weight)
-            lr_now = {name: float(s(step_now - 1)) for name, s in lr_schedules.items()}
-            timer.mark("logging")  # the wait above counts as device_step
-            if is_print:
-                _print_step(epoch, n_epoch, batch_idx, num_batches, loss_f, kld_f, lr_now, w_f)
-            if is_log:
-                t_now = time.time()
-                throughput = steps_since_log * world_batch / max(t_now - t_last_log, 1e-9)
-                t_last_log, steps_since_log = t_now, 0
-                row = (loss_f, float(lo.reconstruction_loss), kld_f, w_f, float(grad_norm))
-                log_dict = _step_log(epoch, batch_idx, num_batches, n_samples_seen, throughput, row, lr_now,
-                                     timer.durations())
-                fold_phases()
-                timer.reset()
-                logger.log(log_dict, step=step_now)
-            timer.mark("device_step")  # the rest of the log block, until the next fetch
-
-        # reconstruction grids of the first two batches
-        if config.log_images and batch_idx <= 1 and (logger.wandb_run is not None or logger.output_dir):
-            _log_reconstruction_grid(logger, model, batch.x, state.step, loader.dataset.transform, y=batch.y)
+    try:
+        while True:
+            timer.mark("dataloader")
+            batch = next(batches, None)
+            if batch is None:
+                break
+            batch_idx += 1
+            timer.mark("device_step")
+            state, lo, grad_norm = train_step(state, batch.x, epoch_seed, y=batch.y)
             if forwards is not None:
-                forwards["grid"] += 1
+                forwards["train_steps"] += 1
+                forwards["train_forwards"] += config.grad_accum
+            loss_sum += lo.loss.float()
+            n_samples_seen += world_batch
+            steps_since_log += 1
+
+            is_print = batch_idx <= 2 or batch_idx % print_interval == 0 or batch_idx >= num_batches - 1
+            is_log = batch_idx % config.log_interval == 0
+            if epoch <= 1 and batch_idx == 0:
+                print("stimuli.shape =", tuple(batch.x.shape))
+                print("loss.shape    =", tuple(lo.loss.shape) or "scalar")
+                print("loss =", float(lo.loss))
+                host_syncs += 1
+            if is_print or is_log:
+                host_syncs += 1
+                step_now = state.step
+                loss_f, kld_f, w_f = float(lo.loss), float(lo.kld_loss), float(lo.kld_weight)
+                lr_now = {name: float(s(step_now - 1)) for name, s in lr_schedules.items()}
+                timer.mark("logging")  # the wait above counts as device_step
+                if is_print:
+                    _print_step(epoch, n_epoch, batch_idx, num_batches, loss_f, kld_f, lr_now, w_f)
+                if is_log:
+                    t_now = time.time()
+                    throughput = steps_since_log * world_batch / max(t_now - t_last_log, 1e-9)
+                    t_last_log, steps_since_log = t_now, 0
+                    row = (loss_f, float(lo.reconstruction_loss), kld_f, w_f, float(grad_norm))
+                    log_dict = _step_log(epoch, batch_idx, num_batches, n_samples_seen, throughput, row, lr_now,
+                                         timer.durations())
+                    fold_phases()
+                    timer.reset()
+                    logger.log(log_dict, step=step_now)
+                timer.mark("device_step")  # the rest of the log block, until the next fetch
+
+            # reconstruction grids of the first two batches
+            if config.log_images and batch_idx <= 1 and (logger.wandb_run is not None or logger.output_dir):
+                _log_reconstruction_grid(logger, model, batch.x, state.step, loader.dataset.transform, y=batch.y)
+                if forwards is not None:
+                    forwards["grid"] += 1
+    finally:
+        timer.close()
 
     fold_phases()
     stats = {"loss": float(loss_sum) / num_batches, "phase_s": epoch_phases, "host_syncs": host_syncs + 1}
+    tracing.count("train.steps", num_batches)
+    tracing.count("train.host_syncs", stats["host_syncs"])
     return stats, state, state.step, n_samples_seen
 
 
@@ -850,41 +858,46 @@ def _train_one_epoch_scan(
     timer, epoch_phases = PhaseTimer(), {}
     host_syncs = 0
     batch_idx = -1
-    timer.mark("device_step")
-    for state, ys in loader.epoch_scan(state, train_step, epoch, epoch_seed, chunk=config.scan_steps):
-        m = ys.cpu().numpy()  # the chunk's one host sync
-        host_syncs += 1
-        timer.mark("logging")
-        if forwards is not None:
-            forwards["train_steps"] += len(m)
-            forwards["train_forwards"] += len(m) * config.grad_accum
-        t_now = time.time()
-        throughput = len(m) * world_batch / max(t_now - t_chunk_start, 1e-9)
-        t_chunk_start = t_now
-        for row in m:
-            batch_idx += 1
-            loss_f, recon_f, kld_f, w_f, gn_f = (float(v) for v in row)
-            loss_sum = np.float32(loss_sum + row[0])
-            n_samples_seen += world_batch
-            step_now = step0 + batch_idx + 1
-            if epoch <= 1 and batch_idx == 0:
-                print(f"scan-chunked training: {config.scan_steps} steps/dispatch")
-                print("loss =", loss_f)
-            lr_now = {name: float(s(step_now - 1)) for name, s in lr_schedules.items()}
-            if batch_idx <= 2 or batch_idx % print_interval == 0 or batch_idx >= num_batches - 1:
-                _print_step(epoch, n_epoch, batch_idx, num_batches, loss_f, kld_f, lr_now, w_f)
-            if batch_idx % config.log_interval == 0:
-                phases = timer.durations()
-                for phase, secs in phases.items():
-                    epoch_phases[phase] = epoch_phases.get(phase, 0.0) + secs
-                timer.reset()
-                row = (loss_f, recon_f, kld_f, w_f, gn_f)
-                logger.log(_step_log(epoch, batch_idx, num_batches, n_samples_seen, throughput, row, lr_now, phases),
-                           step=step_now)
+    try:
         timer.mark("device_step")
+        for state, ys in loader.epoch_scan(state, train_step, epoch, epoch_seed, chunk=config.scan_steps):
+            m = ys.cpu().numpy()  # the chunk's one host sync
+            host_syncs += 1
+            timer.mark("logging")
+            if forwards is not None:
+                forwards["train_steps"] += len(m)
+                forwards["train_forwards"] += len(m) * config.grad_accum
+            t_now = time.time()
+            throughput = len(m) * world_batch / max(t_now - t_chunk_start, 1e-9)
+            t_chunk_start = t_now
+            for row in m:
+                batch_idx += 1
+                loss_f, recon_f, kld_f, w_f, gn_f = (float(v) for v in row)
+                loss_sum = np.float32(loss_sum + row[0])
+                n_samples_seen += world_batch
+                step_now = step0 + batch_idx + 1
+                if epoch <= 1 and batch_idx == 0:
+                    print(f"scan-chunked training: {config.scan_steps} steps/dispatch")
+                    print("loss =", loss_f)
+                lr_now = {name: float(s(step_now - 1)) for name, s in lr_schedules.items()}
+                if batch_idx <= 2 or batch_idx % print_interval == 0 or batch_idx >= num_batches - 1:
+                    _print_step(epoch, n_epoch, batch_idx, num_batches, loss_f, kld_f, lr_now, w_f)
+                if batch_idx % config.log_interval == 0:
+                    phases = timer.durations()
+                    for phase, secs in phases.items():
+                        epoch_phases[phase] = epoch_phases.get(phase, 0.0) + secs
+                    timer.reset()
+                    row = (loss_f, recon_f, kld_f, w_f, gn_f)
+                    log_dict = _step_log(epoch, batch_idx, num_batches, n_samples_seen, throughput, row, lr_now, phases)
+                    logger.log(log_dict, step=step_now)
+            timer.mark("device_step")
+    finally:
+        timer.close()
     for phase, secs in timer.durations().items():
         epoch_phases[phase] = epoch_phases.get(phase, 0.0) + secs
     stats = {"loss": float(loss_sum) / num_batches, "phase_s": epoch_phases, "host_syncs": host_syncs}
+    tracing.count("train.steps", num_batches)
+    tracing.count("train.host_syncs", host_syncs)
     return stats, state, state.step, n_samples_seen
 
 

@@ -48,6 +48,7 @@ import torch.nn as nn
 
 from midi_vae_tpu_torch.core.rng import derive_micro_seed, derive_shard_seed, derive_step_seed
 from midi_vae_tpu_torch.core.types import LossOutput
+from midi_vae_tpu_torch.io import tracing
 from midi_vae_tpu_torch.losses.elbo import elbo_loss
 from midi_vae_tpu_torch.losses.tcvae import beta_tc_elbo_loss
 from midi_vae_tpu_torch.losses.vq import vq_loss
@@ -247,7 +248,9 @@ def make_train_step(
     (tests inject the JAX side's noise with it): one tensor, or with
     ``grad_accum`` > 1 a list of one per micro-batch. ``fused_loss=True``
     takes the BCE through the K1/K2 kernels (``ops/fused_elbo.py``).
-    ``grad_norm`` is the global gradient norm before clipping.
+    ``grad_norm`` is the global gradient norm before clipping. While a
+    profiler records, each step is the span ``train.step``
+    (``io/tracing.py``).
 
     ``mesh`` makes it the data-parallel auto step of the module docstring
     (``x`` and ``y`` are this rank's rows); with ``per_shard`` it is the
@@ -292,6 +295,10 @@ def make_train_step(
         return cross_rank_statistics(model, group)
 
     def step(state: TrainState, x: torch.Tensor, epoch_seed: int, *, y=None, eps=None):
+        with tracing.span("train.step"):
+            return step_body(state, x, epoch_seed, y, eps)
+
+    def step_body(state: TrainState, x: torch.Tensor, epoch_seed: int, y, eps):
         model, bundle = state.model, state.optimizer
         set_step_hyperparams(bundle, state.step)
         model.zero_grad(set_to_none=True)  # also the frozen groups, which are outside the optimizer

@@ -1,0 +1,343 @@
+"""Spans and counters of the port's training step (``io/tracing.py``) on the
+CPU: off, they add no autograd node and open no range; on, under
+``torch.profiler``, the flagship's folded step stays bitwise the same and
+runs the same operations, and the trace holds ``train.step``,
+``model.norm`` and the epoch's phase ranges where the work is; the counters are the epochs' own
+counts. Last, the benchmark's two readers of them on hand-made input.
+That the spans launch no kernel is checked on a card too."""
+
+import dataclasses
+import importlib.util
+import json
+import os
+import sys
+from contextlib import nullcontext
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from midi_vae_tpu_torch.data.pipeline import DeviceResidentLoader
+from midi_vae_tpu_torch.data.sources import ArrayDataset
+from midi_vae_tpu_torch.data.transforms import get_transform
+from midi_vae_tpu_torch.io import tracing
+from midi_vae_tpu_torch.io.logging import MetricLogger, PhaseTimer
+from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
+from midi_vae_tpu_torch.models.vae import apply_norm
+from midi_vae_tpu_torch.train.config import from_yaml
+from midi_vae_tpu_torch.train.loop import build_run_model, build_run_optimizer, train_one_epoch
+from midi_vae_tpu_torch.train.state import create_train_state, make_train_step
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)  # the benchmark's readers import bench_cuda
+
+from bench_cuda.trace import Timeline  # noqa: E402
+
+B, SEED, NORMS = 4, 7, 8  # the flagship's encoder and decoder hold 8 BatchNorms
+
+
+def _config(**kw):
+    cfg = from_yaml(os.path.join(ROOT, "configs", "folded.yaml"))
+    return dataclasses.replace(cfg, fused=True, bce_targets="normalized", batch_size_per_device=B, seed=SEED,
+                               models_dir=None, **kw)
+
+
+def _train(config, device=torch.device("cpu")):
+    """The flagship's model, state and step, as the train CLI builds them."""
+    model = build_run_model(config, device, in_channels=1, seed=SEED)
+    bundle = build_run_optimizer(config, model, B, 100)
+    kl = kl_weight_schedule(config.kl_schedule, config.kld_weight, warmup_steps=config.kl_warmup_steps,
+                            period=config.kl_cycle_steps, ramp_fraction=config.kl_ramp_fraction,
+                            growth=config.kl_growth, cap=config.kl_cap)
+    step = make_train_step(kl, fused_loss=True, grad_accum=config.grad_accum)
+    return model, create_train_state(model, bundle), step
+
+
+def _batch(device=torch.device("cpu")):
+    g = torch.Generator().manual_seed(3)
+    return ((torch.rand(B, 128, 128, 1, generator=g) > 0.9).float() - 0.5).to(device)
+
+
+def _events(prof, tmp_path) -> list:
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def _ranges(events, name) -> list:
+    return [e for e in events if e.get("name") == name and e.get("cat") == "user_annotation"]
+
+
+def _nodes(t: torch.Tensor) -> list:
+    """Every autograd node ``t`` depends on."""
+    seen, todo = [], [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.append(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    return seen
+
+
+@pytest.fixture(autouse=True)
+def _forget_counters():
+    """No test's counts outlive it."""
+    yield
+    tracing.reset()
+
+
+def _a_norm_block(model):
+    return next(m for m in model.modules() if getattr(m, "norm_name", None))
+
+
+def test_off_adds_no_autograd_node_and_opens_no_range(monkeypatch):
+    assert not tracing.enabled()
+    assert tracing.span("train.step") is tracing.span("model.norm")
+    model, state, step = _train(_config())
+    block = _a_norm_block(model)
+    norm = getattr(block, block.norm_name)
+    x = torch.randn(B, norm.weight.shape[0], 16, 16, requires_grad=True)
+    plain = _nodes(norm(x, True))
+    y = apply_norm(block, x, True)
+    assert [type(n).__name__ for n in _nodes(y)] == [type(n).__name__ for n in plain]
+    assert not y._backward_hooks and not x._backward_hooks
+
+    def no_range(*a, **k):
+        raise AssertionError("a range opened with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", no_range)
+    state, lo, _ = step(state, _batch(), 11)
+    assert torch.isfinite(lo.loss)
+    timer = PhaseTimer()
+    timer.mark("dataloader")
+    timer.close()
+
+
+def test_on_the_norm_is_one_forward_range_and_no_node(tmp_path):
+    model, _, _ = _train(_config())
+    block = _a_norm_block(model)
+    norm = getattr(block, block.norm_name)
+    x = torch.randn(B, norm.weight.shape[0], 16, 16, requires_grad=True)
+    plain = [type(n).__name__ for n in _nodes(norm(x, True))]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y = apply_norm(block, x, True)
+        assert [type(n).__name__ for n in _nodes(y)] == plain and not y._backward_hooks
+        y.float().sum().backward()
+        with torch.no_grad():
+            apply_norm(block, x, True)
+    events = _events(prof, tmp_path)
+    fwd0, fwd1 = _ranges(events, "model.norm")
+    backward = [e for e in events if e.get("cat") == "cpu_op" and "Backward" in e["name"]]
+    assert backward and all(fwd0["ts"] + fwd0["dur"] <= e["ts"] and e["ts"] + e["dur"] <= fwd1["ts"] for e in backward)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_profiled_step_is_bitwise_and_traced(grad_accum, tmp_path):
+    """Two steps with and without a profiler: the same loss, gradients,
+    parameters and buffers, bit for bit; the trace holds each step, and
+    8 norm ranges per forward, all before the step's backward."""
+    steps, x, out = 2, _batch(), {}
+    for profiled in (False, True):
+        model, state, step = _train(_config(grad_accum=grad_accum))
+        prof = profile(activities=[ProfilerActivity.CPU]) if profiled else nullcontext()
+        with prof:
+            for _ in range(steps):
+                state, lo, gn = step(state, x, 11)
+        out[profiled] = (lo, gn, {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None},
+                         {k: v.clone() for k, v in model.state_dict().items()})
+    (lo0, gn0, g0, s0), (lo1, gn1, g1, s1) = out[False], out[True]
+    for f in dataclasses.fields(lo0):
+        assert torch.equal(getattr(lo0, f.name), getattr(lo1, f.name)), f.name
+    assert torch.equal(gn0, gn1) and g0.keys() == g1.keys() and s0.keys() == s1.keys()
+    assert all(torch.equal(g0[k], g1[k]) for k in g0) and all(torch.equal(s0[k], s1[k]) for k in s0)
+
+    events = _events(prof, tmp_path)
+    step_ranges = _ranges(events, "train.step")
+    assert len(step_ranges) == steps
+    fwd = _ranges(events, "model.norm")
+    assert len(fwd) == NORMS * grad_accum * steps
+    for r in fwd:
+        assert any(s["ts"] <= r["ts"] and r["ts"] + r["dur"] <= s["ts"] + s["dur"] for s in step_ranges)
+    bwd = [e for e in events if e["name"].startswith("autograd::engine::evaluate_function")]
+    for s in step_ranges:  # a whole forward before the step's first backward
+        first_bwd = min(e["ts"] for e in bwd if s["ts"] <= e["ts"] <= s["ts"] + s["dur"])
+        assert sum(s["ts"] <= r["ts"] < first_bwd for r in fwd) == NORMS
+
+
+def _ops(prof_events) -> list:
+    return [e["name"] for e in sorted(prof_events, key=lambda e: e["ts"]) if e.get("cat") == "cpu_op"]
+
+
+def test_spans_add_no_operation(monkeypatch, tmp_path):
+    """A profiled step runs the same operations, in the same order, with
+    the spans on as with them forced off: the tracer adds no kernel."""
+    ops = {}
+    for on in (True, False):
+        if not on:
+            monkeypatch.setattr(tracing, "enabled", lambda: False)
+        model, state, step = _train(_config())
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(state, _batch(), 11)
+        events = _events(prof, tmp_path)
+        assert bool(_ranges(events, "model.norm")) == on
+        ops[on] = _ops(events)
+    assert ops[True] and ops[True] == ops[False]
+
+
+def test_profiled_remat_step_is_bitwise_and_traces_the_rerun_norms(tmp_path):
+    """Under activation checkpointing the backward reruns each forward, and
+    the rerun's norms are ranges too."""
+    out = {}
+    for profiled in (False, True):
+        model, state, step = _train(_config(remat=True))
+        prof = profile(activities=[ProfilerActivity.CPU]) if profiled else nullcontext()
+        with prof:
+            state, lo, gn = step(state, _batch(), 11)
+        out[profiled] = (lo.loss, gn, {k: v.clone() for k, v in model.state_dict().items()})
+    (l0, g0, s0), (l1, g1, s1) = out[False], out[True]
+    assert torch.equal(l0, l1) and torch.equal(g0, g1) and all(torch.equal(s0[k], s1[k]) for k in s0)
+    events = _events(prof, tmp_path)
+    assert len(_ranges(events, "model.norm")) == 2 * NORMS
+
+
+def _loader(n=12):
+    g = np.random.default_rng(5)
+    images = ((g.uniform(size=(n, 128, 128, 1)) > 0.9) * 255).astype(np.uint8)
+    transform, _ = get_transform("pianoroll", 128, {"normalization": "midi-synthetic"})
+    dataset = ArrayDataset(images=images, labels=np.zeros(n, np.int64), name="tracing", transform=transform)
+    return DeviceResidentLoader(dataset, B, train=True, seed=SEED, device="cpu")
+
+
+@pytest.mark.parametrize("scan_steps", [1, 2])
+def test_epochs_trace_their_phases_and_count_steps_and_reads(scan_steps, tmp_path, capsys):
+    """Two epochs of 3 batches through ``train_one_epoch`` under a profiler
+    (per batch, and in chunks of 2): each phase range opened at a mark and
+    closed at the next or at the epoch's end, each step inside a
+    ``train.device_step``; the counters gain the epochs' steps and reads."""
+    config = _config(scan_steps=scan_steps)
+    model, state, step = _train(config)
+    loader, logger = _loader(), MetricLogger(None)
+    tracing.reset()
+    stats = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for epoch in (1, 2):
+            s, state, _, _ = train_one_epoch(config=config, model=model, state=state, train_step=step,
+                                             loader=loader, logger=logger, epoch=epoch, epoch_seed=100 + epoch,
+                                             lr_schedules=state.optimizer.lr_schedules)
+            stats.append(s)
+    assert tracing.counters() == {"train.steps": 2 * len(loader),
+                                  "train.host_syncs": sum(s["host_syncs"] for s in stats)}
+    events = _events(prof, tmp_path)
+    counts = {p: len(_ranges(events, "train." + p)) for p in ("dataloader", "device_step", "logging")}
+    if scan_steps == 1:  # each batch a print point: fetch, step, log, the log block's rest; a last fetch
+        assert counts == {"dataloader": 2 * 4, "device_step": 2 * 6, "logging": 2 * 3}
+    else:  # a step range before each chunk's read and after it; a log range for each of 2 chunks
+        assert counts == {"dataloader": 0, "device_step": 2 * 3, "logging": 2 * 2}
+    phases = [e for e in events if e["name"].startswith("train.") and e["name"] != "train.step"]
+    phases.sort(key=lambda e: e["ts"])
+    for a, b in zip(phases, phases[1:]):  # one phase at a time
+        assert a["ts"] + a["dur"] <= b["ts"] + 1e-3
+    steps = _ranges(events, "train.step")
+    assert len(steps) == 2 * len(loader)
+    device_steps = _ranges(events, "train.device_step")
+    for s in steps:
+        assert any(d["ts"] <= s["ts"] and s["ts"] + s["dur"] <= d["ts"] + d["dur"] for d in device_steps)
+
+
+def test_counters_count_without_a_profiler(capsys):
+    config = _config()
+    model, state, step = _train(config)
+    loader = _loader(8)
+    tracing.reset()
+    s, *_ = train_one_epoch(config=config, model=model, state=state, train_step=step, loader=loader,
+                            logger=MetricLogger(None), epoch=3, epoch_seed=9,
+                            lr_schedules=state.optimizer.lr_schedules)
+    assert tracing.counters() == {"train.steps": 2, "train.host_syncs": s["host_syncs"]}
+    tracing.reset()
+    assert tracing.counters() == {}
+
+
+def test_phase_timer_sums_are_unchanged_by_its_ranges():
+    with profile(activities=[ProfilerActivity.CPU]):
+        timer = PhaseTimer()
+        for name in ("dataloader", "device_step", "dataloader", "logging"):
+            timer.mark(name)
+        timer.reset()  # clears the sums; the open range runs on
+        timer.mark("device_step")
+        timer.close()
+        timer.close()
+    assert set(timer.durations()) == set() and timer._open is None
+
+
+# ------------------------------------------------------------- the readers
+
+
+def _reader(name):
+    spec = importlib.util.spec_from_file_location("reader_" + name.replace(".", "_"),
+                                                  os.path.join(ROOT, "bench_cuda", "metrics", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def _labelled(host):
+    tl = Timeline(window=(0.0, 10.0), host=host)
+    tl.device_ops = [("k", 1.0, 2.0), ("k", 3.0, 4.0)]
+    tl.kernels = list(tl.device_ops)
+    return tl
+
+
+def test_loop_idle_share_reads_idle_outside_the_steps():
+    read = _reader("loop_idle_share.train")
+    # idle 0-1, 2-3, 4-10 (8 s); steps cover 0.5-1, 2-3 and 4-4.5 of it (2 s)
+    host = [("train.step", 0.5, 2.5), ("aten::mul", 0.6, 0.7), ("train.step", 2.5, 4.5), ("train.logging", 5, 6)]
+    assert read({"labelled": _labelled(host)}) == pytest.approx(60.0)
+    inside = read({"labelled": _labelled([("train.step", 0.0, 10.0)])})
+    assert inside == 0.0
+    assert read({"labelled": None}) is None
+    assert read({}) is None
+    assert read({"labelled": _labelled([("aten::mul", 0.0, 1.0)])}) is None  # a program without the span
+
+
+def test_host_syncs_per_step(monkeypatch):
+    read = _reader("host_syncs_per_step.train")
+    tracing.reset()
+    assert read({}) is None
+    tracing.count("train.steps", 8)
+    tracing.count("train.host_syncs", 5)
+    assert read({}) == pytest.approx(0.625)
+    tracing.reset()
+    monkeypatch.setitem(sys.modules, "midi_vae_tpu_torch.io.tracing", None)  # a program without the tracer
+    assert read({}) is None
+
+
+
+
+def test_on_a_card_spans_launch_no_kernel(monkeypatch, tmp_path):
+    """On a card: the spans are on in a CUDA-only session too; a profiled
+    step holds one step range and 8 norm ranges, and launches as many
+    kernels with the spans on as with them forced off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernels are counted in a CUDA trace")
+    dev = torch.device("cuda", 0)
+    model, state, step = _train(_config(), dev)
+    x = _batch(dev)
+    state, *_ = step(state, x, 11)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, *_ = step(state, x, 11)
+    events = _events(prof, tmp_path)
+    assert len(_ranges(events, "train.step")) == 1 and len(_ranges(events, "model.norm")) == NORMS
+    kernels = []
+    for on in (True, False):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, monkeypatch.context() as m:
+            assert tracing.enabled()
+            if not on:
+                m.setattr(tracing, "enabled", lambda: False)
+            state, *_ = step(state, x, 11)
+            torch.cuda.synchronize()
+        kernels.append(sum(e.get("cat") == "kernel" for e in _events(prof, tmp_path)))
+    assert kernels[0] == kernels[1] > 0
