@@ -22,7 +22,13 @@ Spans and counters of the port (PERF.md §3 says which metric reads each):
 - ``train.dataloader``, ``train.device_step``, ``train.logging``: the
   epoch loop's phases (``PhaseTimer`` in ``io/logging.py``);
 - counters ``train.steps`` and ``train.host_syncs``: folded in once an
-  epoch from ``train_one_epoch``'s own counts; counters always count.
+  epoch from ``train_one_epoch``'s own counts;
+- counter ``train.graph_steps``: ``train/state.py`` ``step`` adds one for
+  each step whose encoder and decoder ran as CUDA graph replays
+  (``train/graphs.py``); the ``model.norm`` ranges of those steps open
+  only while the graphs are captured, at the first step of a batch shape.
+
+Counters always count.
 """
 
 from __future__ import annotations

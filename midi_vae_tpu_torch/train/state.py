@@ -55,6 +55,7 @@ from midi_vae_tpu_torch.losses.vq import vq_loss
 from midi_vae_tpu_torch.models.vae import label_kwarg
 from midi_vae_tpu_torch.ops.fused_elbo import fused_elbo_terms
 from midi_vae_tpu_torch.parallel.collectives import CrossRank, cross_rank_statistics, psum_mean_
+from midi_vae_tpu_torch.train.graphs import StepGraphs
 from midi_vae_tpu_torch.train.optim import OptimizerBundle, set_step_hyperparams
 
 
@@ -252,6 +253,13 @@ def make_train_step(
     profiler records, each step is the span ``train.step``
     (``io/tracing.py``).
 
+    Without ``mesh``, ``grad_accum`` and ``eps``, a model on a CUDA device
+    runs its encoder and decoder as CUDA graph replays where
+    ``train/graphs.py`` ``StepGraphs.engages``: the same kernels on the same
+    tensors, with the reparameterization, the loss and the update eager
+    between and after them. Each such step adds one to the counter
+    ``train.graph_steps``.
+
     ``mesh`` makes it the data-parallel auto step of the module docstring
     (``x`` and ``y`` are this rank's rows); with ``per_shard`` it is the
     explicit per-shard step of ``parallel/spmd.py`` instead.
@@ -280,8 +288,13 @@ def make_train_step(
             return None
         return mesh.shard_index * b, mesh.num_shards * b
 
-    def forward_backward(model, x, y, seed, eps, w) -> LossOutput:
-        out = model(x, train=True, seed=seed, eps=eps, rows=draw_rows(x.shape[0]), **label_kwarg(model, y))
+    graphs = StepGraphs() if mesh is None and grad_accum == 1 else None
+
+    def forward_backward(model, x, y, seed, eps, w, graphed=False) -> LossOutput:
+        if graphed:
+            out = graphs.forward(model, x, label_kwarg(model, y).get("y"), seed)
+        else:
+            out = model(x, train=True, seed=seed, eps=eps, rows=draw_rows(x.shape[0]), **label_kwarg(model, y))
         lo = _loss(out, w)
         lo.loss.backward()
         return dataclasses.replace(lo, loss=lo.loss.detach())
@@ -308,7 +321,10 @@ def make_train_step(
         w = kl_schedule(state.step)
         with synced(model):
             if grad_accum == 1:
-                lo = forward_backward(model, x, y, step_seed, eps, w)
+                graphed = graphs is not None and eps is None and graphs.engages(model)
+                lo = forward_backward(model, x, y, step_seed, eps, w, graphed)
+                if graphed:
+                    tracing.count("train.graph_steps", 1)
             else:
                 n, b = grad_accum, x.shape[0]
                 if b % n:

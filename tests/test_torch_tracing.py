@@ -3,7 +3,7 @@ CPU: off, they add no autograd node and open no range; on, under
 ``torch.profiler``, the flagship's folded step stays bitwise the same and
 runs the same operations, and the trace holds ``train.step``,
 ``model.norm`` and the epoch's phase ranges where the work is; the counters are the epochs' own
-counts. Last, the benchmark's two readers of them on hand-made input.
+counts. Last, the benchmark's three readers of them on hand-made input.
 That the spans launch no kernel is checked on a card too."""
 
 import dataclasses
@@ -26,6 +26,7 @@ from midi_vae_tpu_torch.io.logging import MetricLogger, PhaseTimer
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.vae import apply_norm
 from midi_vae_tpu_torch.train.config import from_yaml
+from midi_vae_tpu_torch.train.graphs import StepGraphs
 from midi_vae_tpu_torch.train.loop import build_run_model, build_run_optimizer, train_one_epoch
 from midi_vae_tpu_torch.train.state import create_train_state, make_train_step
 
@@ -315,14 +316,29 @@ def test_host_syncs_per_step(monkeypatch):
     assert read({}) is None
 
 
+def test_graph_step_share(monkeypatch):
+    read = _reader("graph_step_share.train")
+    tracing.reset()
+    tracing.count("train.steps", 8)
+    assert read({}) is None  # a program without the counter
+    tracing.count("train.graph_steps", 6)
+    assert read({}) == pytest.approx(75.0)
+    tracing.reset()
+    assert read({}) is None
+    monkeypatch.setitem(sys.modules, "midi_vae_tpu_torch.io.tracing", None)
+    assert read({}) is None
+
+
 
 
 def test_on_a_card_spans_launch_no_kernel(monkeypatch, tmp_path):
     """On a card: the spans are on in a CUDA-only session too; a profiled
     step holds one step range and 8 norm ranges, and launches as many
-    kernels with the spans on as with them forced off."""
+    kernels with the spans on as with them forced off. The step is the
+    eager one: a graphed step's norm ranges open only at its capture."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: kernels are counted in a CUDA trace")
+    monkeypatch.setattr(StepGraphs, "engages", lambda self, model: False)
     dev = torch.device("cuda", 0)
     model, state, step = _train(_config(), dev)
     x = _batch(dev)
