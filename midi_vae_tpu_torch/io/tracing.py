@@ -26,7 +26,13 @@ Spans and counters of the port (PERF.md §3 says which metric reads each):
 - counter ``train.graph_steps``: ``train/state.py`` ``step`` adds one for
   each step whose encoder and decoder ran as CUDA graph replays
   (``train/graphs.py``); the ``model.norm`` ranges of those steps open
-  only while the graphs are captured, at the first step of a batch shape.
+  only while the graphs are captured, at the first step of a batch shape;
+- ``model.quantize`` and ``model.codebook_update``: ``models/vq.py``
+  ``VectorQuantizerEMA.forward``, the nearest-code search with the code
+  gather and the straight-through value, then (in training) the EMA
+  update, one range each a call, side by side;
+- counters ``vq.calls`` and ``vq.vectors``: every quantizer call adds one
+  and its number of vectors (a host integer from the shape).
 
 Counters always count.
 """
@@ -55,7 +61,11 @@ def span(name: str):
 
 
 def count(name: str, n: int) -> None:
-    """Add ``n`` to the counter ``name``."""
+    """Add ``n`` to the counter ``name``; nothing while ``torch.compile`` or
+    ``torch.export`` traces the caller (the trace runs once for many calls,
+    and a shape it passes may be symbolic)."""
+    if torch.compiler.is_compiling():
+        return
     with _lock:
         _counters[name] = _counters.get(name, 0) + int(n)
 

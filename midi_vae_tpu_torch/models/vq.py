@@ -21,13 +21,23 @@ Semantics kept from the JAX package:
   dtype. The cross term is computed in f64 and rounded to f32, so no
   TF32 setting of the process can lower its precision (TF32 ranks
   near-ties wrongly); ``argmin`` takes the first index on a tie;
-- the EMA counts and sums (``one_hot(idx).T @ z`` in JAX) are a
-  ``bincount`` and an ``index_add_``: the same sums, in another order.
+- the EMA counts and sums (``one_hot(idx).T @ 1`` and ``one_hot(idx).T @ z``
+  in JAX) are ones and vectors scatter-added into [K] and [K, D] f32
+  buffers (``index_add_``): the same sums, in another order; the counts
+  are exact below 2^24 vectors. Unlike ``bincount``, which reads the
+  indices' range back to the host on a CUDA tensor, they make no host
+  sync.
   Under ``parallel.collectives.cross_rank_statistics`` they are summed
   over the group's ranks before the update, so every rank's codebook
   takes the global batch's update (JAX ``psum`` over ``bn_axis_name``);
 - Laplace smoothing of the cluster sizes before the codebook division;
 - the straight-through output ``z_e + (z_q − z_e).detach()``.
+
+While a profiler records, a call is the span ``model.quantize``
+(distances, argmin, the code gather and the straight-through value) and,
+in training, ``model.codebook_update`` (the EMA update) after it; the
+counters ``vq.calls`` and ``vq.vectors`` count every call and its
+vectors (``io/tracing.py``).
 
 ``encode`` returns the flattened pre-quantization latent as ``mu`` (NHWC
 order) with ``log_var`` zero; ``decode``/``decode_logits`` quantize a
@@ -46,6 +56,7 @@ import torch.nn as nn
 
 from midi_vae_tpu_torch.core.rng import categorical
 from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
+from midi_vae_tpu_torch.io import tracing
 from midi_vae_tpu_torch.models.folded import FoldedVAE
 from midi_vae_tpu_torch.models.vae import Conv, VanillaVAE
 from midi_vae_tpu_torch.parallel.collectives import all_reduce_sum
@@ -78,14 +89,18 @@ class VectorQuantizerEMA(nn.Module):
     def forward(self, z_e: torch.Tensor, train: bool):
         """``z_e`` [..., D] → (straight-through z_q [..., D] f32, indices [...]);
         ``train=True`` also applies one EMA update from this batch."""
-        flat = z_e.reshape(-1, self.embed_dim).float()
-        with torch.no_grad():
-            idx = torch.argmin(self.distances(flat), dim=1)
-            z_q = self.codebook.index_select(0, idx)
-            if train:
+        with tracing.span("model.quantize"):
+            flat = z_e.reshape(-1, self.embed_dim).float()
+            with torch.no_grad():
+                idx = torch.argmin(self.distances(flat), dim=1)
+                z_q = self.codebook.index_select(0, idx)
+            z_e32 = z_e.float()
+            z_st = z_e32 + (z_q.reshape(z_e.shape) - z_e32).detach()
+        if train:
+            with tracing.span("model.codebook_update"):
                 self._ema_update(flat, idx)
-        z_e32 = z_e.float()
-        z_st = z_e32 + (z_q.reshape(z_e.shape) - z_e32).detach()
+        tracing.count("vq.calls", 1)
+        tracing.count("vq.vectors", flat.shape[0])
         return z_st, idx.reshape(z_e.shape[:-1])
 
     cross_rank = None  # set by parallel.collectives.cross_rank_statistics
@@ -93,7 +108,7 @@ class VectorQuantizerEMA(nn.Module):
     @torch.no_grad()
     def _ema_update(self, flat: torch.Tensor, idx: torch.Tensor) -> None:
         k = self.num_codes
-        counts = torch.bincount(idx, minlength=k).float()
+        counts = flat.new_zeros(k).index_add_(0, idx, flat.new_ones(idx.shape[0]))
         dw = torch.zeros_like(self.embed_avg).index_add_(0, idx, flat.detach())
         if self.cross_rank is not None:  # the sums of the whole group's batch, in one all-reduce
             both = all_reduce_sum(torch.cat([counts[:, None], dw], dim=1), self.cross_rank.group)

@@ -3,8 +3,11 @@ CPU: off, they add no autograd node and open no range; on, under
 ``torch.profiler``, the flagship's folded step stays bitwise the same and
 runs the same operations, and the trace holds ``train.step``,
 ``model.norm`` and the epoch's phase ranges where the work is; the counters are the epochs' own
-counts. Last, the benchmark's three readers of them on hand-made input.
-That the spans launch no kernel is checked on a card too."""
+counts. A VQ step opens the quantizer's two ranges and counts its calls
+and vectors. Last, the benchmark's readers of them, and its attribution of
+device time to host ranges (``bench_cuda/spans.py``), on hand-made input.
+That the spans launch no kernel, and that the quantizer reads nothing back
+to the host, is checked on a card."""
 
 import dataclasses
 import importlib.util
@@ -34,6 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)  # the benchmark's readers import bench_cuda
 
+from bench_cuda import counts_vq, spans  # noqa: E402
 from bench_cuda.trace import Timeline  # noqa: E402
 
 B, SEED, NORMS = 4, 7, 8  # the flagship's encoder and decoder hold 8 BatchNorms
@@ -329,6 +333,134 @@ def test_graph_step_share(monkeypatch):
     assert read({}) is None
 
 
+
+
+# ------------------------------------------------------------- the quantizer
+
+
+def _vq_train():
+    """A narrow ``configs/vq16_fold8.yaml`` model (fold 8, a 16×16 grid of
+    16 codes of dimension 4), its state and its VQ step."""
+    cfg = dataclasses.replace(from_yaml(os.path.join(ROOT, "configs", "vq16_fold8.yaml")), hidden_dims=(8, 16, 32),
+                              n_features=4, codebook_size=16, batch_size_per_device=B, seed=SEED, models_dir=None)
+    model = build_run_model(cfg, torch.device("cpu"), in_channels=1, seed=SEED)
+    step = make_train_step(kl_weight_schedule("constant", cfg.kld_weight), loss_type="vq",
+                           target_denorm=((0.5,), (1.0,)))
+    return model, create_train_state(model, build_run_optimizer(cfg, model, B, 100)), step
+
+
+def test_vq_step_opens_the_quantizer_s_ranges_and_counts_its_vectors(monkeypatch, tmp_path):
+    """Off, the quantizer's spans are the shared null context and a VQ step
+    opens no range; on, it opens ``model.quantize`` and then
+    ``model.codebook_update`` once each, inside ``train.step``. Each step
+    counts one call of B·16·16 vectors, with a profiler or without."""
+    assert tracing.span("model.quantize") is tracing.span("model.codebook_update") is tracing._NULL
+    model, state, step = _vq_train()
+    n = B * 16 * 16
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", lambda *a, **k: pytest.fail("a range opened off a profiler"))
+        state, lo, _ = step(state, _batch(), 11)
+    assert torch.isfinite(lo.loss) and tracing.counters() == {"vq.calls": 1, "vq.vectors": n}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, _batch(), 11)
+    assert tracing.counters() == {"vq.calls": 2, "vq.vectors": 2 * n}
+    events = _events(prof, tmp_path)
+    (q,), (u,), (s,) = (_ranges(events, name) for name in ("model.quantize", "model.codebook_update", "train.step"))
+    assert s["ts"] <= q["ts"] and q["ts"] + q["dur"] <= u["ts"] and u["ts"] + u["dur"] <= s["ts"] + s["dur"]
+
+
+def _chrome(*events):
+    """Chrome-trace events from (cat, name, ts, dur, correlation or None)."""
+    out = []
+    for cat, name, ts, dur, corr in events:
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 1, "tid": 1}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        out.append(e)
+    return out
+
+
+def _quantizer_trace():
+    """The stretch, a step range holding the quantizer's two ranges and a
+    second step range; kernels launched through the CUDA runtime and driver
+    APIs, a copy and a fill, a launch outside every range and a kernel with
+    no launch."""
+    return _chrome(
+        ("user_annotation", "bench_cuda.stretch", 0.0, 300.0, None),
+        ("user_annotation", "train.step", 0.0, 100.0, None),
+        ("user_annotation", "model.quantize", 10.0, 20.0, None),
+        ("user_annotation", "model.codebook_update", 30.0, 10.0, None),
+        ("user_annotation", "train.step", 200.0, 50.0, None),
+        ("cuda_runtime", "cudaLaunchKernel", 5.0, 1.0, 1),
+        ("cuda_runtime", "cudaLaunchKernel", 12.0, 1.0, 2),
+        ("cuda_driver", "cuLaunchKernel", 32.0, 1.0, 3),
+        ("cuda_runtime", "cudaMemcpyAsync", 25.0, 1.0, 4),
+        ("cuda_runtime", "cudaLaunchKernel", 150.0, 1.0, 5),
+        ("cuda_runtime", "cudaLaunchKernel", 210.0, 1.0, 6),
+        ("kernel", "k_step", 7.0, 3.0, 1),
+        ("kernel", "k_distances", 20.0, 5.0, 2),
+        ("kernel", "k_ema", 40.0, 7.0, 3),
+        ("gpu_memcpy", "Memcpy DtoD", 41.0, 2.0, 4),
+        ("kernel", "k_outside", 150.0, 100.0, 5),
+        ("gpu_memset", "Memset", 215.0, 4.0, 6),
+        ("kernel", "k_orphan", 60.0, 9.0, 77),
+    )
+
+
+def test_spans_attribute_device_time_to_the_ranges_that_launched_it():
+    """Device time goes to every range its launch lies in, by Kineto's
+    correlation, whenever the device runs it: nested ranges each, a name's
+    ranges once, and nothing to a launch outside them or a kernel without one."""
+    got = spans.attribute(_quantizer_trace())
+    assert set(got) == {"bench_cuda.stretch", "train.step", "model.quantize", "model.codebook_update"}
+    assert got["bench_cuda.stretch"] == (1, pytest.approx((3 + 5 + 7 + 2 + 100 + 4) * 1e-6))
+    assert got["train.step"] == (2, pytest.approx((3 + 5 + 7 + 2 + 4) * 1e-6))
+    assert got["model.quantize"] == (1, pytest.approx((5 + 2) * 1e-6))
+    assert got["model.codebook_update"] == (1, pytest.approx(7e-6))
+
+
+def test_quantizer_readers():
+    share, roofline = _reader("quantizer_device_share.train"), _reader("quantizer_roofline")
+    labelled = spans.Labelled(_quantizer_trace())
+    vq = {"codes": 512, "dim": 16, "z_bytes": 2}
+    assert share({"spans": labelled}) == pytest.approx(100.0 * 14 / 21)
+    tracing.reset()
+    assert roofline({"spans": labelled, "vq": vq}) is None  # a program without the counters
+    tracing.count("vq.calls", 4)
+    tracing.count("vq.vectors", 4 * 524_288)
+    least = counts_vq.least_seconds(524_288, 512, 16, 2)
+    assert least == pytest.approx(2 * 524_288 * 512 * 16 / 67e12)  # f64 cross term, compute-bound: ~0.128 ms
+    assert roofline({"spans": labelled, "vq": vq}) == pytest.approx(100.0 * least / 14e-6)
+    bare = spans.Labelled(_chrome(("user_annotation", "bench_cuda.stretch", 0.0, 300.0, None),
+                                  ("user_annotation", "train.step", 0.0, 100.0, None),
+                             ("cuda_runtime", "cudaLaunchKernel", 5.0, 1.0, 1), ("kernel", "k", 7.0, 3.0, 1)))
+    for read in (share, roofline):  # a program without the quantizer's spans
+        assert read({"spans": bare, "vq": vq}) is None and read({}) is None
+
+
+@pytest.mark.card
+def test_on_a_card_the_training_quantizer_reads_nothing_back():
+    """On a card: ``bincount`` of the codes reads their range back to the
+    host (a sync), and a train-mode quantizer call makes none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: host syncs are a CUDA stream's")
+    from midi_vae_tpu_torch.models.vq import VectorQuantizerEMA
+
+    dev = torch.device("cuda", 0)
+    q = VectorQuantizerEMA(512, 16, generator=torch.Generator().manual_seed(0)).to(dev)
+    z = torch.randn(64, 16, 16, 16, generator=torch.Generator(device=dev).manual_seed(1), device=dev,
+                    dtype=torch.bfloat16)
+    idx = q(z, False)[1].reshape(-1)
+    cb = q.codebook.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.bincount(idx, minlength=512)
+        z_st, _ = q(z, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(z_st).all() and not torch.equal(q.codebook, cb)
 
 
 def test_on_a_card_spans_launch_no_kernel(monkeypatch, tmp_path):

@@ -159,6 +159,18 @@ def test_quantizer_ema_update_matches_hand_math():
     np.testing.assert_allclose(q.codebook.numpy(), ea1 / smoothed[:, None], rtol=1e-6)
 
 
+def test_quantizer_counts_are_bincount_s():
+    """The EMA counts, scatter-added as f32 ones, are ``bincount``'s exactly,
+    codes that no vector picks included (at decay 0 the update leaves the
+    batch's counts in ``cluster_size``)."""
+    q = VectorQuantizerEMA(K, D, decay=0.0, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    idx = torch.randint(0, K // 2, (300,), generator=g)  # the upper half of the codes goes unpicked
+    q._ema_update(torch.randn(300, D, generator=g), idx)
+    assert torch.equal(q.cluster_size, torch.bincount(idx, minlength=K).float())
+    assert torch.all(q.cluster_size[K // 2 :] == 0)
+
+
 def test_quantizer_ema_update_matches_jax():
     """One train-mode call at decay 0.99 (the f32 rounding of 1 − decay
     included): buffers within rtol 1e-6."""
