@@ -24,6 +24,14 @@ From the repository root. It
    [8, 10] (a reconstruction grid), a ragged one and one past a single
    CTA's reach; its backward against the plain backward at the flagship
    shape and [100, 10], with and without a KL gradient; and times both;
+   then runs the fused BatchNorm + LeakyReLU of ``ops/fused_norm.py``
+   (Triton, forward and backward) at each of the flagship's eight BatchNorm
+   layers (batch 2048, bf16, train mode): its launches, its output and
+   gradients against the plain version (the port's ``BatchNorm`` and
+   ``F.leaky_relu``; dx within 2e-4 of its norm, ∂scale and ∂bias within
+   1e-5), and its device time beside the bytes bound, the plain version's
+   and ``F.batch_norm`` + ``F.leaky_relu`` (cuDNN's BatchNorm, the library
+   yardstick, used nowhere in the port);
 5. trains the flagship FoldedVAE (fold 8, hidden (48, 64, 128, 256),
    latent 10, bf16, batch 2048 of 128×128 synthetic piano rolls, AdamW
    under OneCycle, β 2.5e-4) through the fused kernels, checks that each
@@ -194,7 +202,13 @@ From the repository root. It
    (``F64_RTOL``); K1 and K2 once per step, K3 only for the reconstruction grids (the
    replayed draws take the plain reparameterization), K3-bwd never; each
    step's relative errors and the phase's seconds;
-18. prints one ``{"kernels": [...]}`` line (``accum_launches`` for the
+18. prints one ``{"fused_norm": [...]}`` line (item 4's rows, one a
+   BatchNorm layer) and one ``{"kernels": [...]}`` line: K1–K3, then the
+   fused BatchNorm's forward (``BN``) and backward (``BN-bwd``), whose
+   launches every run of items 5, 7–17 holds to what its forwards predict
+   (each conv-block BatchNorm once a forward and once a backward, twice a
+   forward under remat, none in a step whose statistics span ranks; the
+   artifact phase holds one request on each server; ``accum_launches`` for the
    accumulated run, ``variant_launches`` for every run of item 10,
    ``model_variant_launches`` for item 11, ``artifact_launches`` for item
    12, ``parallel_launches`` for item 13, ``data_launches`` for the
@@ -232,8 +246,8 @@ import torch.nn.functional as F
 from midi_vae_tpu_torch.data.synthetic import make_pianoroll_batch
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.registry import build_model
-from midi_vae_tpu_torch.models.vae import VanillaVAE, param_group_label
-from midi_vae_tpu_torch.ops import cuda_lib
+from midi_vae_tpu_torch.models.vae import BatchNorm, VanillaVAE, param_group_label
+from midi_vae_tpu_torch.ops import cuda_lib, fused_norm
 from midi_vae_tpu_torch.ops import fused_elbo as ops
 from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, derive_step_seed, make_train_step
@@ -283,6 +297,50 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def launch_counts() -> dict:
+    """Launches of K1–K3 and of the fused BatchNorm + LeakyReLU (``BN``, its
+    backward ``BN-bwd``)."""
+    return {**ops.launch_counts(), **fused_norm.launch_counts()}
+
+
+def reset_launch_counts() -> None:
+    ops.reset_launch_counts()
+    fused_norm.reset_launch_counts()
+
+
+def elbo_launches(counts: dict) -> dict:
+    """K1–K3's part of :func:`launch_counts`."""
+    return {k: counts[k] for k in ops.KERNEL_WRAPPERS}
+
+
+def fused_norms(model) -> int:
+    """The model's conv-block BatchNorms (``norm_leaky_relu``'s fused case)."""
+    return sum(type(getattr(m, m.norm_name)) is BatchNorm for m in model.modules() if getattr(m, "norm_name", None))
+
+
+def norm_launches(model, train_forwards: int, other_forwards: int = 0, synced: bool = False) -> dict:
+    """The fused BatchNorm's launches that forwards of ``model`` on the card
+    predict: each conv-block BatchNorm once a forward (twice a train
+    forward under remat, whose backward reruns it) and once a train
+    forward's backward; none in a train forward whose statistics span two
+    or more ranks (``synced``). A replayed CUDA graph counts as its
+    forward."""
+    n = fused_norms(model)
+    train = 0 if synced else train_forwards
+    return {"BN": n * (train * (2 if getattr(model, "remat", False) else 1) + other_forwards), "BN-bwd": n * train}
+
+
+def expected_norm_launches(r: dict) -> dict:
+    """:func:`norm_launches` of a train-CLI run from the forwards it reports:
+    its train forwards, reconstruction grids and eval batches; the auto step
+    over a mesh of two or more ranks (and any VQ step over one) syncs its
+    statistics."""
+    f, model = r["forwards"], r["state"].model
+    synced = r["mesh"] is not None and math.prod(r["mesh"]["shape"]) > 1 and (
+        r["config"]["step_impl"] == "auto" or getattr(model, "latent_kind", "gaussian") == "vq")
+    return norm_launches(model, f["train_forwards"], f["grid"] + f["eval_batches"], synced)
 
 
 def card_line() -> str:
@@ -586,6 +644,103 @@ def k3_phase(dev):
     return {"K3": max(errs), "K3-bwd": max(bwd_errs)}, times, sizes
 
 
+# ================================================================= fused BatchNorm + LeakyReLU
+
+# (C, H, W, cropped) of the flagship's eight BatchNorm layers, encoder to head
+FLAGSHIP_NORMS = ((48, 8, 8, False), (64, 8, 8, False), (128, 8, 8, False), (256, 8, 8, False),
+                  (128, 8, 8, False), (64, 8, 8, False), (48, 16, 16, True), (48, 16, 16, False))
+# bytes an element of bf16 BatchNorm + LeakyReLU moves at least, forward and backward:
+# x read and y written, then dy and x read and dx written
+NORM_BYTES_PER_ELEMENT = 10
+L2_BYTES = 50e6
+# launch key → the kernels it counts (they replace no TPU kernel: the JAX package leaves BatchNorm to XLA)
+NORM_INFO = {
+    "BN": "BN _bn_stats_kernel+_bn_finalize_kernel+_bn_apply_kernel (fused BatchNorm + LeakyReLU)",
+    "BN-bwd": "BN-bwd _bn_grad_stats_kernel+_bn_grad_finalize_kernel+_bn_grad_apply_kernel (its backward)",
+}
+
+
+def fused_norm_phase(dev) -> list:
+    """The fused BatchNorm + LeakyReLU at each flagship BatchNorm layer,
+    train mode, forward and backward through autograd: launches a call,
+    errors against the plain version (the port's ``BatchNorm`` and
+    ``F.leaky_relu``, which take their own batch statistics, so outputs may
+    differ by an ulp of bf16), and the device time of the kernels, of the
+    plain version and of the library yardstick, beside the bytes bound.
+    ``dy`` leans on x̂ and on a constant, so that the batch statistics'
+    terms of ∂x carry weight: a backward without them would miss by far
+    more than the limits. Returns one row per layer."""
+    rows = []
+    for c, h, w, crop in FLAGSHIP_NORMS:
+        gen = torch.Generator(device=dev).manual_seed(1000 * c + h + crop)
+        full = 1.5 * torch.randn(BATCH, h + crop, w + crop, c, generator=gen, device=dev) + 0.2
+        x = full.to(torch.bfloat16).permute(0, 3, 1, 2)[:, :, :h, :w].detach().requires_grad_()
+        noise = torch.randn(BATCH, h, w, c, generator=gen, device=dev)
+        dy = (noise + 0.5 * (full[:, :h, :w] - 0.2) / 1.5 + 0.25).to(torch.bfloat16).permute(0, 3, 1, 2)
+        layer = BatchNorm(c, dtype=torch.bfloat16).to(dev)
+        params = (layer.weight, layer.bias)
+        kw = dict(train=True, update=True, momentum=layer.momentum, eps=layer.epsilon, dtype=torch.bfloat16,
+                  slope=0.01)
+
+        def fused():
+            y = fused_norm.batch_norm_leaky_relu(x, *params, layer.running_mean, layer.running_var, **kw)
+            return (y, *torch.autograd.grad(y, (x, *params), dy))
+
+        def plain():
+            y = F.leaky_relu(layer(x, True), 0.01)
+            return (y, *torch.autograd.grad(y, (x, *params), dy))
+
+        def library():
+            y = F.leaky_relu(F.batch_norm(x, layer.running_mean, layer.running_var, layer.weight, layer.bias,
+                                          training=True, momentum=0.1, eps=layer.epsilon), 0.01)
+            return (y, *torch.autograd.grad(y, (x, *params), dy))
+
+        launches = (fused_norm.batch_norm_leaky_relu.launches, fused_norm.batch_norm_leaky_relu_grad.launches)
+        got = fused()
+        torch.cuda.synchronize(dev)
+        calls = (fused_norm.batch_norm_leaky_relu.launches - launches[0],
+                 fused_norm.batch_norm_leaky_relu_grad.launches - launches[1])
+        check(calls == (1, 1), f"fused BatchNorm launches {calls} for one forward and backward")
+        want = plain()
+        y, y_plain = got[0].detach(), want[0].detach()
+        check(y.stride() == y_plain.stride(), f"output strides {y.stride()} vs {y_plain.stride()}")
+        # the plain version sums its statistics in another order: a pre-activation 1 ulp apart can end 2 ulps
+        # apart once LeakyReLU scales it by 0.01 and rounds it again, and one within that rounding of 0 (|y| at
+        # most 1e-5 here) can take the other slope
+        larger = torch.maximum(y.abs(), y_plain.abs())
+        ulps = (y.float() - y_plain.float()).abs() / ulp(larger)
+        flips = int(((ulps > 2) & (larger <= 1e-5)).sum())
+        y_ulps = float(ulps[larger > 1e-5].max())
+        # gradients: the two sum in other orders and round dx to bf16 (1.6e-5 to 2.4e-5 of dx's norm and at most
+        # 4.6e-7 of ∂scale's and ∂bias's measured with an independent dy); a ∂x without the statistics' terms
+        # misses by ~sqrt(2/M) of the norm even then (2e-3 to 4e-3 here)
+        errs = [float((g.double() - p.double()).norm() / p.double().norm()) for g, p in zip(got[1:], want[1:])]
+        check(y_ulps <= 2 and errs[0] <= 2e-4 and max(errs[1:]) <= 1e-5,
+              f"fused BatchNorm vs plain: y {y_ulps} ulp, dx {errs[0]:.3e} (limit 2e-4), dscale and dbias "
+              f"{errs[1]:.3e}, {errs[2]:.3e} (limit 1e-5)")
+        n = x.numel()
+        row = {"shape": [BATCH, c, h, w], "cropped": crop, "elements": n, "x_mb": n * 2 / 1e6,
+               "y_max_ulps": y_ulps, "y_sign_flips": flips, "dx_rel": errs[0], "dscale_rel": errs[1],
+               "dbias_rel": errs[2],
+               "bound_ms": n * NORM_BYTES_PER_ELEMENT / HBM_BYTES_PER_S * 1e3}
+        for name, fn in (("kernel", fused), ("plain", plain), ("library", library)):
+            row[f"{name}_device_ms"], row[f"{name}_kernels"] = device_ms_per_call(fn, dev)
+            row[f"{name}_ms"] = time_ms(fn)
+        rows.append(row)
+        log(f"  [{BATCH},{c},{h},{w}]{' cropped' if crop else ''} ({row['x_mb']:.1f} MB of x"
+            f"{', fits L2' if n * 2 < L2_BYTES else ''}): y within {y_ulps:.0f} ulp ({flips} near 0 take the "
+            f"other slope), dx {errs[0]:.2e}, dscale "
+            f"{errs[1]:.2e}, dbias {errs[2]:.2e} of the plain version's norm; device ms kernel "
+            f"{row['kernel_device_ms']:.4f} ({row['kernel_kernels']:.0f} kernels), plain {row['plain_device_ms']:.4f} "
+            f"({row['plain_kernels']:.0f}), library {row['library_device_ms']:.4f} ({row['library_kernels']:.0f}); "
+            f"bound {row['bound_ms']:.4f}; events ms kernel {row['kernel_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+            f"library {row['library_ms']:.4f}")
+    total = {k: sum(r[k] for r in rows) for k in ("kernel_device_ms", "plain_device_ms", "library_device_ms",
+                                                  "bound_ms")}
+    log(f"  the {len(rows)} layers: device ms " + ", ".join(f"{k} {v:.4f}" for k, v in total.items()))
+    return rows
+
+
 # ================================================================= train
 
 
@@ -611,7 +766,7 @@ def train_phase(dev):
     state = create_train_state(model, build_optimizer(model, param_group_label, **OPTIMIZER))
     step = make_train_step(kl_schedule, fused_loss=True)
     torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launch_counts()
+    reset_launch_counts()
     losses, step_ms = [], []
     x = x0
     for i in range(TRAIN_STEPS):
@@ -623,13 +778,13 @@ def train_phase(dev):
         losses.append(lo.loss.item())  # reading the loss to the host closes the window
         step_ms.append((time.perf_counter() - t0) * 1e3)
         check(math.isfinite(losses[-1]) and math.isfinite(grad_norm.item()), f"step {i}: loss {losses[-1]}")
-    counts = ops.launch_counts()
+    counts = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
 
     log(f"  losses: first {losses[0]:.6f}, last five {[round(v, 6) for v in losses[-5:]]}")
     check(statistics.mean(losses[-5:]) < losses[0], "loss did not fall over the run")
-    for key, c in counts.items():
-        check(c == TRAIN_STEPS, f"{key} launched {c} times in {TRAIN_STEPS} fused steps")
+    want = {**{k: TRAIN_STEPS for k in ops.KERNEL_WRAPPERS}, **norm_launches(model, TRAIN_STEPS)}
+    check(counts == want, f"launched {counts} in {TRAIN_STEPS} fused steps, expected {want}")
     rel = abs(losses[0] - ref_loss) / abs(ref_loss)
     log(f"  first fused step loss {losses[0]:.7f} vs unfused step with the plain draw {ref_loss:.7f}: rel {rel:.2e}")
     check(rel <= 1e-3, "fused and unfused first-step losses differ")
@@ -647,8 +802,11 @@ def train_phase(dev):
 
 # kernel-name fragments → layer, for the profile's breakdown (first match wins)
 OUR_KERNELS = tuple(f for info in KERNEL_INFO.values() for f in info[4])
+NORM_KERNELS = ("_bn_stats_kernel", "_bn_finalize_kernel", "_bn_apply_kernel", "_bn_grad_stats_kernel",
+                "_bn_grad_finalize_kernel", "_bn_grad_apply_kernel")
 LAYERS = (
     ("K1-K3 (Triton, CUDA C++)", OUR_KERNELS),
+    ("BatchNorm + LeakyReLU (Triton, ops/fused_norm.py)", NORM_KERNELS),
     ("convs and dense (cuDNN, cuBLAS)", ("xmma", "cutlass", "gemm", "conv", "wgrad", "dgrad", "nvjet", "splitK")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("batch generation (scatter, random)", ("scatter", "distribution", "random")),
@@ -747,12 +905,13 @@ def expected_cli_launches(r: dict, epochs: int) -> dict:
     forward (one per step, or one per micro-batch under ``--grad-accum``);
     K3's forward once per train forward, once per reconstruction grid and
     once per eval batch (the eval forward samples z, as the JAX package's
-    does)."""
+    does); the fused BatchNorm as :func:`expected_norm_launches`."""
     f = r["forwards"]
     check(f["train_steps"] == r["steps_per_epoch"] * epochs,
           f"{f['train_steps']} train steps in {epochs} epochs of {r['steps_per_epoch']}")
     fwd = f["train_forwards"]
-    return {"K1": fwd, "K2": fwd, "K3": fwd + f["grid"] + f["eval_batches"], "K3-bwd": fwd}
+    return {"K1": fwd, "K2": fwd, "K3": fwd + f["grid"] + f["eval_batches"], "K3-bwd": fwd,
+            **expected_norm_launches(r)}
 
 
 def log_cli_run(label: str, r: dict, card: str) -> None:
@@ -834,10 +993,10 @@ def cli_phase(dev, root: Path, card: str) -> dict:
     config = str(root / "configs" / "folded.yaml")
     fused = ["--config", config, "--fused", "--bce-targets", "normalized", "--epochs", "3", "--seed", "0"]
 
-    ops.reset_launch_counts()
+    reset_launch_counts()
     r1 = train_cli.cli(fused + ["--stop-after-epochs", "2", "--models-dir", str(models), "--run-name", "cli",
                                 "--run-id", "fused"])
-    counts = ops.launch_counts()
+    counts = launch_counts()
     log_cli_run("fused, epochs 1-2 of 3", r1, card)
     want = expected_cli_launches(r1, 2)
     log(f"  launches {counts}, expected {want}")
@@ -853,9 +1012,9 @@ def cli_phase(dev, root: Path, card: str) -> dict:
     small_batch_steps(r1["state"], dev, card)
     loader_phase(dev, card)
 
-    ops.reset_launch_counts()
+    reset_launch_counts()
     r2 = train_cli.cli(fused + ["--checkpoint", str(latest)])
-    counts2 = ops.launch_counts()
+    counts2 = launch_counts()
     log_cli_run("resumed, epoch 3", r2, card)
     check(r2["start_epoch"] == 3 and [h["epoch"] for h in r2["history"]] == [3], "resume did not run epoch 3 alone")
     check(r2["total_step"] == r1["total_step"] + r1["steps_per_epoch"], f"total_step {r2['total_step']}")
@@ -868,16 +1027,18 @@ def cli_phase(dev, root: Path, card: str) -> dict:
         f"{r1['n_samples_seen']} -> {r2['n_samples_seen']}; launches {counts2}; final test "
         f"cross-entropy {r2['final_test']['cross-entropy']:.6f}")
 
-    ops.reset_launch_counts()
+    reset_launch_counts()
     r3 = train_cli.cli(["--config", config, "--epochs", "1", "--seed", "0", "--models-dir", str(models),
                         "--run-name", "cli", "--run-id", "as-written"])
     log_cli_run("configs/folded.yaml as written (raw targets, auto bias, unfused), 1 epoch", r3, card)
     metrics = [r3["train"]["loss"]] + [r3[p][k] for p in ("test", "final_test", "final_train")
                                        for k in ("cross-entropy", "bce-objective", "kl", "mse", "mae")]
     check(all(math.isfinite(v) for v in metrics), f"non-finite metrics in the as-written run: {metrics}")
-    check(ops.launch_counts() == {k: 0 for k in ops.KERNEL_WRAPPERS}, "the unfused run launched a kernel")
+    counts3, want3 = launch_counts(), {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_norm_launches(r3)}
+    check(counts3 == want3, f"the unfused run launched {counts3}, expected {want3}")
     log(f"  as written: train loss {r3['train']['loss']:.6f}, final test bce-objective "
-        f"{r3['final_test']['bce-objective']:.6f}, active units {r3['final_test']['active-units']}; no kernel launched")
+        f"{r3['final_test']['bce-objective']:.6f}, active units {r3['final_test']['active-units']}; no K1-K3 launched, "
+        f"fused BatchNorm {counts3['BN']} / {counts3['BN-bwd']} as the forwards predict")
     return counts
 
 
@@ -989,7 +1150,7 @@ def serve_phase(dev, root: Path, card: str) -> None:
     out = root / "build" / "serve"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    ops.reset_launch_counts()
+    reset_launch_counts()
 
     generate_and_evaluate(ckpt, out, card)
 
@@ -1107,8 +1268,9 @@ def serve_phase(dev, root: Path, card: str) -> None:
             h.server_close()
             h.service.close()
 
-    counts = ops.launch_counts()
-    check(counts == {k: 0 for k in ops.KERNEL_WRAPPERS}, f"the inference path launched a fused-ELBO kernel: {counts}")
+    counts = launch_counts()
+    check(elbo_launches(counts) == {k: 0 for k in ops.KERNEL_WRAPPERS},
+          f"the inference path launched a fused-ELBO kernel: {counts}")
     log(f"  launches across the serve phase (generate, evaluate, serve): {counts}; the phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -1391,8 +1553,9 @@ def vq_serve(best: Path, prior_path: Path, model, prior, x, dev, card: str) -> N
 
 
 def vq_phase(dev, root: Path, card: str) -> dict:
-    """The two-stage VQ path (module docstring, item 9). Returns the fused-ELBO
-    kernels' launches across it, which must all be 0."""
+    """The two-stage VQ path (module docstring, item 9). Returns the launches
+    of its stage-1 train run: K1–K3 none (nor anywhere in the phase), the
+    fused BatchNorm's as the run's forwards predict."""
     from midi_vae_tpu_torch.cli.train_prior import load_prior
 
     t_phase = time.perf_counter()
@@ -1400,9 +1563,12 @@ def vq_phase(dev, root: Path, card: str) -> dict:
     for d in (models, out):
         shutil.rmtree(d, ignore_errors=True)
     out.mkdir(parents=True)
-    ops.reset_launch_counts()
+    reset_launch_counts()
 
     r, best = vq_train(root, models, card)
+    stage1, want = launch_counts(), {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_norm_launches(r)}
+    log(f"  stage 1 launches {stage1}, expected {want} (forwards {r['forwards']})")
+    check(stage1 == want, f"the VQ stage-1 run launched {stage1}, expected {want}")
     vq_step_timing(r, dev, card)
     vq_card_vs_cpu(best, dev, card)
     prior_path, pixelcnn_path = vq_prior_train(root, best, card)
@@ -1413,10 +1579,11 @@ def vq_phase(dev, root: Path, card: str) -> dict:
     prior_step_timing(prior_path, dev, card)
     vq_serve(best, prior_path, model, prior, x, dev, card)
 
-    counts = ops.launch_counts()
-    check(counts == {k: 0 for k in ops.KERNEL_WRAPPERS}, f"the VQ path launched a fused-ELBO kernel: {counts}")
+    counts = launch_counts()
+    check(elbo_launches(counts) == {k: 0 for k in ops.KERNEL_WRAPPERS},
+          f"the VQ path launched a fused-ELBO kernel: {counts}")
     log(f"  launches across the VQ phase: {counts}; the phase took {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return stage1
 
 
 # ================================================================ variants
@@ -1472,9 +1639,9 @@ def fused_run(argv: list, epochs: int, label: str, card: str) -> tuple:
     Returns (results, counts)."""
     from midi_vae_tpu_torch.cli import train as train_cli
 
-    ops.reset_launch_counts()
+    reset_launch_counts()
     r = train_cli.cli(argv)
-    counts = ops.launch_counts()
+    counts = launch_counts()
     log_cli_run(label, r, card)
     want = expected_cli_launches(r, epochs)
     log(f"  launches {counts}, expected {want} (forwards {r['forwards']})")
@@ -1483,14 +1650,17 @@ def fused_run(argv: list, epochs: int, label: str, card: str) -> tuple:
 
 
 def unfused_run(argv: list, label: str, card: str) -> dict:
-    """A train-CLI run on a path that runs no fused-ELBO kernel: 0 launches."""
+    """A train-CLI run on a path that runs no fused-ELBO kernel: 0 launches
+    of K1–K3, the fused BatchNorm's as its forwards predict."""
     from midi_vae_tpu_torch.cli import train as train_cli
 
-    ops.reset_launch_counts()
+    reset_launch_counts()
     r = train_cli.cli(argv)
     log_cli_run(label, r, card)
-    counts = ops.launch_counts()
-    check(counts == {k: 0 for k in ops.KERNEL_WRAPPERS}, f"{label}: launched a fused-ELBO kernel: {counts}")
+    counts = launch_counts()
+    want = {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_norm_launches(r)}
+    log(f"  launches {counts}, expected {want} (forwards {r['forwards']})")
+    check(counts == want, f"{label}: launched {counts}, expected {want}")
     return r
 
 
@@ -1940,7 +2110,7 @@ def flagship_variant_window(dev, card: str, label: str, steps: int, **variant) -
     step = make_train_step(kl, fused_loss=True)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launch_counts()
+    reset_launch_counts()
     losses, step_ms = [], []
     x = x0
     for i in range(steps):
@@ -1951,10 +2121,11 @@ def flagship_variant_window(dev, card: str, label: str, steps: int, **variant) -
         state, lo, _ = step(state, x, 0)
         losses.append(lo.loss.item())
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    counts = ops.launch_counts()
+    counts = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
-    check(counts == {k: steps for k in ops.KERNEL_WRAPPERS}, f"{label}: launched {counts} in {steps} fused steps")
+    want = {**{k: steps for k in ops.KERNEL_WRAPPERS}, **norm_launches(model, steps)}
+    check(counts == want, f"{label}: launched {counts} in {steps} fused steps, expected {want}")
     rel = abs(losses[0] - ref_loss) / abs(ref_loss)
     check(rel <= 1e-3, f"{label}: fused first-step loss {losses[0]} vs unfused {ref_loss}")
     med = statistics.median(step_ms)
@@ -2025,7 +2196,7 @@ def vanilla_variant_runs(dev, models: Path, card: str) -> tuple:
             shapes[f"VanillaVAE {label} batch"] = run_shape(r, CLI_BATCH)
         else:
             r = unfused_run(argv, f"VanillaVAE {label}, 1 epoch", card)
-            counts = ops.launch_counts()
+            counts = launch_counts()
         add_counts(total, counts)
         check(math.isfinite(r["train"]["loss"]) and math.isfinite(r["final_test"]["cross-entropy"]),
               f"VanillaVAE {label}: loss {r['train']['loss']}")
@@ -2128,7 +2299,8 @@ def model_variants_phase(dev, root: Path, card: str, flagship: dict) -> tuple:
 
 def artifact_phase(dev, root: Path, card: str) -> dict:
     """The exported serving artifact (module docstring, item 12). Returns the
-    fused-ELBO launches across it, which must all be 0."""
+    launches across it: K1–K3 none; the fused BatchNorm's as served (one
+    request on each server held to its forward)."""
     import numpy as np
 
     from midi_vae_tpu_torch.cli.generate import _fetch_eval_batch, _load_model_and_state
@@ -2143,7 +2315,7 @@ def artifact_phase(dev, root: Path, card: str) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     ckpt = root / "build" / "cli_models" / "midi-synthetic" / "cli__fused" / "best_model.pt"
     vq_dir = root / "build" / "vq_models" / "midi-synthetic" / "vq16__stage1"
-    ops.reset_launch_counts()
+    reset_launch_counts()
 
     def stop(*servers):
         for h in servers:
@@ -2179,6 +2351,14 @@ def artifact_phase(dev, root: Path, card: str) -> dict:
         log(f"  serve --artifact on the card (loaded and listening in {load_s:.3f} s) vs the checkpoint server, max "
             "|err|: " + "; ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f"; /healthz {health['model']} [{card}]")
         check(max(errs.values()) <= 1e-5, f"the artifact server disagrees with the checkpoint server: {errs}")
+        for where, url in urls.items():  # a reconstruction: one forward, the fused BatchNorm once a layer
+            before = fused_norm.launch_counts()
+            ServingClient(url).reconstruct(x[:1])
+            probe = {k: v - before[k] for k, v in fused_norm.launch_counts().items()}
+            check(probe == norm_launches(model, 0, 1), f"a {where} /reconstruct launched {probe} of the fused "
+                  f"BatchNorm, expected {norm_launches(model, 0, 1)}")
+        log(f"  one /reconstruct launches the fused BatchNorm {fused_norms(model)} times on either server, the "
+            "exported programs' operators included")
         lat = {}
         for where, url in urls.items():
             c = ServingClient(url)
@@ -2223,8 +2403,9 @@ def artifact_phase(dev, root: Path, card: str) -> dict:
     finally:
         stop(art, ck)
 
-    counts = ops.launch_counts()
-    check(counts == {k: 0 for k in ops.KERNEL_WRAPPERS}, f"the artifact path launched a fused-ELBO kernel: {counts}")
+    counts = launch_counts()
+    check(elbo_launches(counts) == {k: 0 for k in ops.KERNEL_WRAPPERS},
+          f"the artifact path launched a fused-ELBO kernel: {counts}")
     log(f"  launches across the artifact phase: {counts}; the phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -2265,7 +2446,7 @@ def step_window(state, step, xs: list, dev, rows=None) -> dict:
     its loss: losses, per-step ms, kernel launches and collectives."""
     from midi_vae_tpu_torch.parallel import collectives
 
-    ops.reset_launch_counts()
+    reset_launch_counts()
     collectives.reset_counts()
     losses, ms = [], []
     for x in xs:
@@ -2275,7 +2456,7 @@ def step_window(state, step, xs: list, dev, rows=None) -> dict:
         losses.append(lo.loss.item())
         ms.append((time.perf_counter() - t0) * 1e3)
         check(math.isfinite(losses[-1]) and math.isfinite(grad_norm.item()), f"non-finite step: {losses[-1]}")
-    return {"state": state, "losses": losses, "ms": ms, "launches": ops.launch_counts(),
+    return {"state": state, "losses": losses, "ms": ms, "launches": launch_counts(),
             "collectives": collectives.counts()}
 
 
@@ -2333,7 +2514,7 @@ def _two_rank_worker(rank: int, store: str, weights_path: str, out_path: str) ->
         state = flagship_state(dev, weights)
         step = make_spmd_train_step(kl, mesh, fused_loss=True)
         equal, spmd_losses = [], []
-        ops.reset_launch_counts()
+        reset_launch_counts()
         for x in xs:
             state, lo, _ = step(state, x[rows], 0)
             spmd_losses.append(lo.loss.item())
@@ -2341,7 +2522,7 @@ def _two_rank_worker(rank: int, store: str, weights_path: str, out_path: str) ->
             theirs = mine.clone()
             dist.broadcast(theirs, src=1)
             equal.append(bool(torch.equal(mine, theirs)))
-        spmd_launches = ops.launch_counts()
+        spmd_launches = launch_counts()
         launches = [None, None]
         dist.all_gather_object(launches, (auto["launches"], spmd_launches))
         if rank == 0:
@@ -2372,6 +2553,8 @@ def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
                           **FLAGSHIP).state_dict()
     xs = flagship_batches(dev, PARALLEL_STEPS)
     ref = step_window(flagship_state(dev, weights), make_train_step(kl, fused_loss=True), xs, dev)
+    want = {**{k: PARALLEL_STEPS for k in ops.KERNEL_WRAPPERS}, **norm_launches(ref["state"].model, PARALLEL_STEPS)}
+    check(ref["launches"] == want, f"the non-distributed window launched {ref['launches']}, expected {want}")
     total = {k: 0 for k in ops.KERNEL_WRAPPERS}
 
     # one rank over NCCL, both step implementations
@@ -2386,8 +2569,9 @@ def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
         bitwise = w["losses"] == ref["losses"]
         rel = max(abs(a - b) / abs(b) for a, b in zip(w["losses"], ref["losses"]))
         check(bitwise or rel <= 1e-6, f"world-1 {impl} losses differ from the non-distributed step: rel {rel}")
-        for key, c in w["launches"].items():
-            check(c == PARALLEL_STEPS, f"{key} launched {c} times in {PARALLEL_STEPS} world-1 {impl} steps")
+        want = {**{k: PARALLEL_STEPS for k in ops.KERNEL_WRAPPERS}, **norm_launches(w["state"].model, PARALLEL_STEPS)}
+        check(w["launches"] == want, f"{w['launches']} launched in {PARALLEL_STEPS} world-1 {impl} steps, "
+              f"expected {want} (a group of one rank keeps the statistics local: fused)")
         per_step = {k: v / PARALLEL_STEPS for k, v in w["collectives"].items()}
         med = statistics.median(w["ms"])
         log(f"  world-1 NCCL {impl}: {PARALLEL_STEPS} losses {'bitwise equal to' if bitwise else f'within {rel:.2e} rel of'}"
@@ -2415,15 +2599,19 @@ def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
                                     xs[:TWO_RANK_STEPS], dev)["state"].model).cpu()
     upd_rel = float((two["params"] - one).norm() / (one - p0).norm())
     check(upd_rel <= 0.1, f"two-rank parameters after {TWO_RANK_STEPS} steps: update differs by {upd_rel:.3e} rel")
+    model = flagship_state(dev, weights).model
     for r, (auto_l, spmd_l) in enumerate(two["launches"]):
-        for key in ops.KERNEL_WRAPPERS:
-            check(auto_l[key] == TWO_RANK_STEPS and spmd_l[key] == TWO_RANK_STEPS,
-                  f"rank {r}: {key} launched {auto_l[key]} (auto), {spmd_l[key]} (shard_map) in {TWO_RANK_STEPS} steps")
+        elbo = {k: TWO_RANK_STEPS for k in ops.KERNEL_WRAPPERS}
+        want = ({**elbo, **norm_launches(model, TWO_RANK_STEPS, synced=True)},
+                {**elbo, **norm_launches(model, TWO_RANK_STEPS)})
+        check((auto_l, spmd_l) == want, f"rank {r}: launched {auto_l} (auto), {spmd_l} (shard_map) in "
+              f"{TWO_RANK_STEPS} steps, expected {want}")
     check(all(math.isfinite(v) for v in two["spmd_losses"]) and all(two["spmd_equal"]),
           f"two-rank shard_map: losses {two['spmd_losses']}, ranks' parameters equal after each step {two['spmd_equal']}")
     med2 = statistics.median(two["auto_ms"])
     log(f"  two ranks on cuda:0 over gloo, batch {BATCH // 2} each: first-step loss {two['auto_losses'][0]:.7f} vs one "
-        f"rank at {BATCH} {ref['losses'][0]:.7f} (rel {rel:.2e}, bound 1e-3); K1-K3 once per rank per step; "
+        f"rank at {BATCH} {ref['losses'][0]:.7f} (rel {rel:.2e}, bound 1e-3); K1-K3 once per rank per step, "
+        f"the fused BatchNorm {fused_norms(model)} times per rank per shard_map step (none in the auto step); "
         f"parameters after {TWO_RANK_STEPS} steps: update within {upd_rel:.3e} of one rank's (relative norm, "
         f"bound 0.1: bf16 compute; the norm-fed conv biases left out); "
         f"collectives in {TWO_RANK_STEPS} steps {two['collectives']}; step median {med2:.3f} ms "
@@ -2436,9 +2624,9 @@ def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
     models = root / "build" / "cli_models"
     argv = ["--config", str(root / "configs" / "folded.yaml"), "--fused", "--bce-targets", "normalized",
             "--epochs", "1", "--seed", "0", "--models-dir", str(models), "--run-name", "cli"]
-    ops.reset_launch_counts()
+    reset_launch_counts()
     r = train_cli.cli(argv + ["--num-devices", "1", "--step-impl", "shard_map", "--run-id", "shard-map"])
-    counts = ops.launch_counts()
+    counts = launch_counts()
     log_cli_run("--num-devices 1 --step-impl shard_map, 1 epoch", r, card)
     want = expected_cli_launches(r, 1)
     check(counts == want, f"shard_map CLI run launched {counts}, expected {want}")
@@ -2532,9 +2720,9 @@ def stream_epoch(root: Path, rrd: Path, models: Path, dev, card: str) -> tuple:
             "--models-dir", str(models), "--run-name", "data", "--run-id", "stream"]
     pipeline.NativeDeviceLoader.epoch = counted
     try:
-        ops.reset_launch_counts()
+        reset_launch_counts()
         r = train_cli.cli(argv)
-        counts = ops.launch_counts()
+        counts = launch_counts()
     finally:
         pipeline.NativeDeviceLoader.epoch = real_epoch
     log_cli_run("rrd: stream, host placement (native loader), fused", r, card)
@@ -2598,10 +2786,10 @@ def resident_scan_epochs(root: Path, rrd: Path, models: Path, card: str) -> dict
             "--models-dir", str(models), "--run-name", "data"]
     runs, total = {}, {k: 0 for k in ops.KERNEL_WRAPPERS}
     for n in (1, SCAN_CHUNK):
-        ops.reset_launch_counts()
+        reset_launch_counts()
         with LossRecorder() as rec:
             r = train_cli.cli(base + ["--scan-steps", str(n), "--run-id", f"scan{n}"])
-        counts = ops.launch_counts()
+        counts = launch_counts()
         want = expected_cli_launches(r, 1)
         check(counts == want, f"--scan-steps {n} run launched {counts}, expected {want}")
         add_counts(total, counts)
@@ -2747,11 +2935,11 @@ def orbax_resume(root: Path, models: Path, card: str) -> dict:
             "--epochs", "2", "--seed", "0", "--checkpoint-backend", "orbax"]
     a, b = models / "orbax_a" / "checkpoint_latest.orbax", models / "orbax_b" / "checkpoint_latest.orbax"
     total = {k: 0 for k in ops.KERNEL_WRAPPERS}
-    ops.reset_launch_counts()
+    reset_launch_counts()
     first = train_cli.cli(base + ["--stop-after-epochs", "1", "--checkpoint", str(a)])
     resumed = train_cli.cli(base + ["--async-checkpoint", "--checkpoint", str(a)])
     straight = train_cli.cli(base + ["--async-checkpoint", "--checkpoint", str(b)])
-    add_counts(total, ops.launch_counts())
+    add_counts(total, launch_counts())
     check(resumed["start_epoch"] == 2 and resumed["total_step"] == straight["total_step"] == 2 * first["total_step"],
           "the orbax resume did not continue at epoch 2")
     sa, sb = state_dict(resumed["state"]), state_dict(straight["state"])
@@ -2808,12 +2996,12 @@ def jax_checkpoint_on_the_card(root: Path, models: Path, dev, card: str, fixture
         for s in services:
             s.close()
     check(srv_err <= 1e-4, f"the served JAX {kind} checkpoint: card against CPU {srv_err}")
-    ops.reset_launch_counts()
+    reset_launch_counts()
     r = train_cli.cli(["--dataset", "vae-lines-synthetic", "--transform-type", "noaug", "--image-size", "28",
                        "--model", "FoldedVAE", "--fold", "4", "--hidden-dims", "8", "16", "--n_features", "4",
                        "--fused", "--epochs", "1", "--batch-size", "128", "--seed", "0", "--pretrained", fixture,
                        "--ema-decay", "0.9", "--models-dir", str(models), "--run-name", f"pretrained-{kind[1:]}"])
-    counts = ops.launch_counts()
+    counts = launch_counts()
     check(counts == expected_cli_launches(r, 1) and r["total_step"] == r["steps_per_epoch"],
           f"--pretrained x{kind} run: launches {counts}, total_step {r['total_step']}")
     log(f"  JAX {kind} on the card (z = mu): evaluate within {max(errs.values()):.2e} (relative) of the CPU, generate "
@@ -3412,7 +3600,7 @@ def trajectory_run(tr, meta: dict, arrays: dict, dtype: str, init: Path, models:
     saved = (loop.make_train_step, loop.make_eval_step, rasterize.augment_pianoroll_batch, fetch.SYNTHETIC_SIZES)
     loop.make_train_step, loop.make_eval_step, rasterize.augment_pianoroll_batch = make_train_step, make_eval_step, aug
     fetch.SYNTHETIC_SIZES = {**fetch.SYNTHETIC_SIZES, "midi-synthetic": meta["synthetic_files"]}
-    ops.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     try:
         r = train_cli.cli(meta["argv"] + meta["dtypes"][dtype] + ["--pretrained", str(init), "--models-dir",
@@ -3420,13 +3608,14 @@ def trajectory_run(tr, meta: dict, arrays: dict, dtype: str, init: Path, models:
     finally:
         loop.make_train_step, loop.make_eval_step, rasterize.augment_pianoroll_batch, fetch.SYNTHETIC_SIZES = saved
     seconds = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     steps, f = r["total_step"], r["forwards"]
     log_cli_run(f"the JAX fixture's {dtype} run replayed, fused", r, card)
-    want_counts = {"K1": steps, "K2": steps, "K3": f["grid"], "K3-bwd": 0}
+    want_counts = {"K1": steps, "K2": steps, "K3": f["grid"], "K3-bwd": 0, **expected_norm_launches(r)}
     log(f"  launches {counts}, expected {want_counts}: K1 and K2 once per step; K3 only for the {f['grid']} "
         "reconstruction grids, whose draw is not replayed (the steps and sweeps take the fixture's draws through "
-        "the plain reparameterization, so K3 and its backward stay out of them; k3_phase holds K3)")
+        "the plain reparameterization, so K3 and its backward stay out of them; k3_phase holds K3); the fused "
+        "BatchNorm as the forwards predict (the f64 recomputations take the plain BatchNorm)")
     check(counts == want_counts, f"{dtype}: launched {counts}, expected {want_counts}")
     check(replay_train_step.used == len(draws.train) and make_eval_step.used == len(draws.eval[0])
           and aug.calls == steps, f"{dtype}: replayed {replay_train_step.used} step draws, {make_eval_step.used} eval "
@@ -3536,6 +3725,8 @@ def main() -> int:
     log("K3 (CUDA C++) vs plain versions on the card:")
     for part, more in zip((errs, times, sizes), k3_phase(dev)):
         part.update(more)
+    log("fused BatchNorm + LeakyReLU (Triton) at the flagship's BatchNorm layers:")
+    norm_rows = fused_norm_phase(dev)
     log(f"train ({TRAIN_STEPS} fused steps, flagship FoldedVAE):")
     model, counts, device_ms, flagship_window = train_phase(dev)
     log("reconstruct:")
@@ -3564,6 +3755,11 @@ def main() -> int:
     log("trajectory (the JAX package's flagship run replayed step by step, float32 and bfloat16):")
     trajectory_counts = trajectory_phase(dev, root, card)
 
+    runs = {"launches": counts, "cli_launches": cli_counts, "vq_launches": vq_counts, "accum_launches": accum_counts,
+            "variant_launches": variant_counts, "model_variant_launches": model_counts,
+            "artifact_launches": artifact_counts, "parallel_launches": parallel_counts, "data_launches": data_counts,
+            "public_api_launches": public_counts, "config_launches": config_counts,
+            "trajectory_launches": trajectory_counts}
     kernels = []
     for key, (name, route, source, replaces, _) in KERNEL_INFO.items():
         ms, plain_ms, library_ms = times[key]
@@ -3574,18 +3770,7 @@ def main() -> int:
                 "route": route,
                 "source": source,
                 "replaces": replaces,
-                "launches": counts[key],
-                "cli_launches": cli_counts[key],
-                "vq_launches": vq_counts[key],
-                "accum_launches": accum_counts[key],
-                "variant_launches": variant_counts[key],
-                "model_variant_launches": model_counts[key],
-                "artifact_launches": artifact_counts[key],
-                "parallel_launches": parallel_counts[key],
-                "data_launches": data_counts[key],
-                "public_api_launches": public_counts[key],
-                "config_launches": config_counts[key],
-                "trajectory_launches": trajectory_counts[key],
+                **{run: c[key] for run, c in runs.items()},
                 "max_abs_err": max(errs[key], variant_errs[key], model_errs[key], public_errs[key], config_errs[key]),
                 "ms": ms,
                 "device_ms": device_ms[key],
@@ -3597,7 +3782,12 @@ def main() -> int:
         )
         log(f"  {key}: {ms:.4f} ms, device {device_ms[key]:.4f} ms (plain {plain_ms:.4f}, library {library_ms}, "
             f"bound {bound:.7f} by {bound_by})")
+    for key, name in NORM_INFO.items():  # their errors and times: the fused_norm line
+        kernels.append({"name": name, "route": "triton", "source": "midi_vae_tpu_torch/ops/fused_norm.py",
+                        "replaces": None, **{run: c[key] for run, c in runs.items()}})
+        log(f"  {key}: " + ", ".join(f"{run} {c[key]}" for run, c in runs.items()))
     log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"fused_norm": norm_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -18,7 +18,14 @@ Spans and counters of the port (PERF.md §3 says which metric reads each):
 - ``model.norm``: ``models/vae.py`` ``apply_norm``, every norm kind, the
   forward only (a range around the backward needs gradient hooks, whose
   host time, 1-3 ms a step of the folded model on an H100 host, shows in
-  the device's idle share);
+  the device's idle share); for a BatchNorm that runs fused with its
+  LeakyReLU (``norm_leaky_relu``), the fused operation's forward;
+- counters ``norm.batch_calls`` and ``norm.fused_calls``:
+  ``models/vae.py`` ``norm_leaky_relu`` adds one to the first for each
+  ``BatchNorm`` forward of a conv block, and one to the second for each
+  of those that took the fused operation's kernels (``ops/fused_norm.py``;
+  on a card only); in a graphed step they count at the capture, not at
+  the replays;
 - ``train.dataloader``, ``train.device_step``, ``train.logging``: the
   epoch loop's phases (``PhaseTimer`` in ``io/logging.py``);
 - counters ``train.steps`` and ``train.host_syncs``: folded in once an

@@ -22,7 +22,10 @@ Semantics that differ from torch's own layers and are kept here:
 - BatchNorm computes its statistics in f32 (also under bf16), normalises
   with the biased batch variance and updates the running variance with it
   too (torch's ``BatchNorm2d`` uses the unbiased one there); flax momentum
-  0.9 is torch momentum 0.1.
+  0.9 is torch momentum 0.1. In the conv blocks on a card a BatchNorm and
+  the LeakyReLU after it run as one fused operation of hand-written
+  kernels (:func:`norm_leaky_relu`, ``ops/fused_norm.py``), which computes
+  the same function.
 - The flatten before ``fc_mu``/``fc_var`` and the reshape after
   ``decoder_input`` are in NHWC order, so the dense weights are the flax
   ones transposed.
@@ -69,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
 from midi_vae_tpu_torch.io import tracing
 from midi_vae_tpu_torch.ops.fused_elbo import fused_reparam_kl
+from midi_vae_tpu_torch.ops.fused_norm import KERNEL_DTYPES, batch_norm_leaky_relu
 from midi_vae_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 
 _LEAKY_SLOPE = 0.01
@@ -434,6 +438,43 @@ def apply_norm(block: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
         return getattr(block, block.norm_name)(x, train)
 
 
+def _on_a_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _one_rank(norm: BatchNorm) -> bool:
+    """Whether the layer's statistics stay on this rank: no group, or a group of one rank."""
+    return norm.cross_rank is None or group_size(norm.cross_rank.group) == 1
+
+
+def norm_leaky_relu(block: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """LeakyReLU(0.01) of ``block``'s normalization sublayer applied to ``x``.
+
+    A :class:`BatchNorm` itself (not a subclass) whose statistics stay on
+    this rank (``cross_rank`` unset, or a group of one rank, whose mean is
+    the local one), given a CUDA tensor in a dtype the
+    kernels take (f32, bf16, f16: every model dtype), runs as one fused
+    operation, ``ops.fused_norm.batch_norm_leaky_relu`` (hand-written
+    kernels computing this module's BatchNorm and the activation), traced
+    as ``model.norm``. Everything else (a CPU tensor, an f64 model, every
+    other norm, a BatchNorm whose statistics span two or more ranks: an
+    all-reduce between the passes) runs :func:`apply_norm` and
+    ``F.leaky_relu``. The counters
+    ``norm.batch_calls`` and ``norm.fused_calls`` count the BatchNorm calls
+    and those that took the kernels."""
+    norm = None if block.norm_name is None else getattr(block, block.norm_name)
+    if type(norm) is BatchNorm:
+        tracing.count("norm.batch_calls", 1)
+        if _on_a_card(x) and x.dtype in KERNEL_DTYPES and norm.dtype in KERNEL_DTYPES and _one_rank(norm):
+            tracing.count("norm.fused_calls", 1)
+            with tracing.span("model.norm"):
+                return batch_norm_leaky_relu(
+                    x, norm.weight, norm.bias, norm.running_mean, norm.running_var, train=train,
+                    update=train and not in_recompute(), momentum=norm.momentum, eps=norm.epsilon,
+                    dtype=norm.dtype, slope=_LEAKY_SLOPE)
+    return F.leaky_relu(apply_norm(block, x, train), _LEAKY_SLOPE)
+
+
 class ConvBlock(nn.Module):
     """Conv(k3, SAME, stride) + norm + LeakyReLU(0.01); ``torch_compat`` pads
     (1, 1) as the reference does."""
@@ -455,7 +496,7 @@ class ConvBlock(nn.Module):
         self.norm_name = add_norm(self, norm, features, dtype)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return F.leaky_relu(apply_norm(self, self.Conv_0(x), train), _LEAKY_SLOPE)
+        return norm_leaky_relu(self, self.Conv_0(x), train)
 
 
 class DeconvBlock(nn.Module):
@@ -478,7 +519,7 @@ class DeconvBlock(nn.Module):
         self.norm_name = add_norm(self, norm, features, dtype)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return F.leaky_relu(apply_norm(self, self.ConvTranspose_0(x), train), _LEAKY_SLOPE)
+        return norm_leaky_relu(self, self.ConvTranspose_0(x), train)
 
 
 class S2DStem(nn.Module):
@@ -497,7 +538,7 @@ class S2DStem(nn.Module):
         if h % 2 or w % 2:
             raise ValueError(f"s2d stem needs even spatial dims, got {h}x{w}")
         x = _space_to_depth(x.permute(0, 2, 3, 1), 2).permute(0, 3, 1, 2)
-        return F.leaky_relu(apply_norm(self, self.Conv_0(x), train), _LEAKY_SLOPE)
+        return norm_leaky_relu(self, self.Conv_0(x), train)
 
 
 class BlockStack(nn.Module):
@@ -584,7 +625,7 @@ class D2SHead(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        x = F.leaky_relu(apply_norm(self, self.Conv_0(x), train), _LEAKY_SLOPE)
+        x = norm_leaky_relu(self, self.Conv_0(x), train)
         return _depth_to_space(self.Conv_1(x).permute(0, 2, 3, 1), 2, self.out_channels)
 
 

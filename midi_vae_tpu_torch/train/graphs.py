@@ -32,7 +32,9 @@ and capture leave the training state as they found it: the parameters,
 ``.grad`` and the optimizer are not touched (the backward passes go
 through ``torch.autograd.grad``), and the model's buffers (BatchNorm's
 running statistics, which the warm-up forwards move) are saved before
-and copied back after.
+and copied back after. So are the fused BatchNorm's launch counters
+(``ops/fused_norm.py``): each replay adds the launches its graph holds,
+so they count one call per forward and backward, as in the eager step.
 
 A capture stays valid while the model is the same object and its
 parameters and buffers stay at the addresses they had: in-place restores
@@ -57,6 +59,7 @@ from torch.autograd.function import once_differentiable
 
 from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
 from midi_vae_tpu_torch.models.vae import VanillaVAE
+from midi_vae_tpu_torch.ops import fused_norm
 
 WARMUP_PASSES = 3
 _HOOK_DICTS = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks", "_backward_pre_hooks")
@@ -80,10 +83,12 @@ class _Graphed:
     """One callable's forward and backward as two CUDA graphs over fixed
     buffers: ``args`` (the callable's tensor arguments), ``outputs``,
     ``grad_outputs`` (the backward's seeds), ``arg_grads`` (per argument,
-    its gradient buffer or None) and ``params`` with their ``param_grads``."""
+    its gradient buffer or None) and ``params`` with their ``param_grads``;
+    ``launches``: the fused BatchNorm's launches each graph holds."""
 
-    def __init__(self, fwd, bwd, args, outputs, grad_outputs, arg_grads, params, param_grads):
+    def __init__(self, fwd, bwd, args, outputs, grad_outputs, arg_grads, params, param_grads, launches):
         self.fwd, self.bwd = fwd, bwd
+        self.fwd_launches, self.bwd_launches = launches
         self.args, self.outputs, self.grad_outputs = args, outputs, grad_outputs
         self.arg_grads, self.params, self.param_grads = arg_grads, params, param_grads
         self.zeroed = [True] * len(grad_outputs)  # the seeds start as zeros
@@ -93,6 +98,7 @@ class _Graphed:
             if static.data_ptr() != a.data_ptr():
                 static.copy_(a)
         self.fwd.replay()
+        fused_norm.add_launch_counts(self.fwd_launches)
         return tuple(o.detach() for o in self.outputs)
 
     def replay_backward(self, grads) -> Tuple[Optional[torch.Tensor], ...]:
@@ -106,6 +112,7 @@ class _Graphed:
                     seed.copy_(g)
                 self.zeroed[i] = False
         self.bwd.replay()
+        fused_norm.add_launch_counts(self.bwd_launches)
         # detached aliases: autograd hands each parameter its gradient without a copy
         return tuple(None if g is None else g.detach() for g in (*self.arg_grads, *self.param_grads))
 
@@ -161,6 +168,8 @@ class _Capture:
             return (model.decode_logits(z_, True, **labels),)
 
         side = torch.cuda.Stream(dev)
+        launched = fused_norm.launch_counts()
+        marks = []  # the launch counters before and after each capture
         with torch.cuda.device(dev):
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -176,6 +185,7 @@ class _Capture:
             pool = torch.cuda.graph_pool_handle()
 
             def capture(graph):
+                marks.append(fused_norm.launch_counts())
                 return torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local")
 
             # cuBLAS keeps one workspace per stream outside any pool; cleared, the captures
@@ -193,14 +203,18 @@ class _Capture:
             with capture(graphs[3]):
                 e_grads = torch.autograd.grad(e_out, params, e_seeds, allow_unused=True)
             torch._C._cuda_clearCublasWorkspaces()
+            marks.append(fused_norm.launch_counts())
             with torch.no_grad():
                 for b, s in zip(buffers, saved):
                     b.copy_(s)
+        fused_norm.reset_launch_counts()
+        fused_norm.add_launch_counts(launched)
+        held = [{k: after[k] - before[k] for k in after} for before, after in zip(marks, marks[1:])]
         ys = () if sy is None else (sy,)
         self.encode = _Graphed(graphs[0], graphs[3], (sx, *ys), tuple(o.detach() for o in e_out), e_seeds,
-                               [None] * (1 + len(ys)), *_split(e_grads, params))
+                               [None] * (1 + len(ys)), *_split(e_grads, params), (held[0], held[3]))
         self.decode = _Graphed(graphs[1], graphs[2], (sz, *ys), tuple(o.detach() for o in d_out), d_seeds,
-                               [d_grads[-1]] + [None] * len(ys), *_split(d_grads[:-1], params))
+                               [d_grads[-1]] + [None] * len(ys), *_split(d_grads[:-1], params), (held[1], held[2]))
 
     def valid_for(self, model: nn.Module) -> bool:
         """Still the captured model, with its tensors where they were."""

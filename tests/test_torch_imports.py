@@ -111,7 +111,8 @@ def test_artifact_modules_are_among_the_guarded_sources():
 
 
 def test_artifact_loader_imports_nothing_of_the_models():
-    """The artifact loader needs torch alone: importing it pulls in no
+    """The artifact loader needs torch and the fused BatchNorm's operators
+    alone: importing it pulls in no
     module of ``midi_vae_tpu_torch.models`` (its exporter imports them at
     call time), with JAX and the JAX package blocked."""
     code = (

@@ -41,6 +41,7 @@ from bench_cuda import counts_vq, spans  # noqa: E402
 from bench_cuda.trace import Timeline  # noqa: E402
 
 B, SEED, NORMS = 4, 7, 8  # the flagship's encoder and decoder hold 8 BatchNorms
+VQ_NORMS = 6  # the VQ trunk's (fold 8, three widths): three in the encoder, two in the decoder, one in the head
 
 
 def _config(**kw):
@@ -235,7 +236,8 @@ def test_epochs_trace_their_phases_and_count_steps_and_reads(scan_steps, tmp_pat
                                              lr_schedules=state.optimizer.lr_schedules)
             stats.append(s)
     assert tracing.counters() == {"train.steps": 2 * len(loader),
-                                  "train.host_syncs": sum(s["host_syncs"] for s in stats)}
+                                  "train.host_syncs": sum(s["host_syncs"] for s in stats),
+                                  "norm.batch_calls": NORMS * 2 * len(loader)}
     events = _events(prof, tmp_path)
     counts = {p: len(_ranges(events, "train." + p)) for p in ("dataloader", "device_step", "logging")}
     if scan_steps == 1:  # each batch a print point: fetch, step, log, the log block's rest; a last fetch
@@ -261,7 +263,8 @@ def test_counters_count_without_a_profiler(capsys):
     s, *_ = train_one_epoch(config=config, model=model, state=state, train_step=step, loader=loader,
                             logger=MetricLogger(None), epoch=3, epoch_seed=9,
                             lr_schedules=state.optimizer.lr_schedules)
-    assert tracing.counters() == {"train.steps": 2, "train.host_syncs": s["host_syncs"]}
+    assert tracing.counters() == {"train.steps": 2, "train.host_syncs": s["host_syncs"],
+                                  "norm.batch_calls": 2 * NORMS}
     tracing.reset()
     assert tracing.counters() == {}
 
@@ -353,17 +356,19 @@ def test_vq_step_opens_the_quantizer_s_ranges_and_counts_its_vectors(monkeypatch
     """Off, the quantizer's spans are the shared null context and a VQ step
     opens no range; on, it opens ``model.quantize`` and then
     ``model.codebook_update`` once each, inside ``train.step``. Each step
-    counts one call of B·16·16 vectors, with a profiler or without."""
+    counts one call of B·16·16 vectors, with a profiler or without, and its
+    six BatchNorms (on the CPU, none fused)."""
     assert tracing.span("model.quantize") is tracing.span("model.codebook_update") is tracing._NULL
     model, state, step = _vq_train()
     n = B * 16 * 16
     with monkeypatch.context() as m:
         m.setattr(torch.profiler, "record_function", lambda *a, **k: pytest.fail("a range opened off a profiler"))
         state, lo, _ = step(state, _batch(), 11)
-    assert torch.isfinite(lo.loss) and tracing.counters() == {"vq.calls": 1, "vq.vectors": n}
+    norms = {"norm.batch_calls": VQ_NORMS}
+    assert torch.isfinite(lo.loss) and tracing.counters() == {"vq.calls": 1, "vq.vectors": n, **norms}
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(state, _batch(), 11)
-    assert tracing.counters() == {"vq.calls": 2, "vq.vectors": 2 * n}
+    assert tracing.counters() == {"vq.calls": 2, "vq.vectors": 2 * n, **{k: 2 * v for k, v in norms.items()}}
     events = _events(prof, tmp_path)
     (q,), (u,), (s,) = (_ranges(events, name) for name in ("model.quantize", "model.codebook_update", "train.step"))
     assert s["ts"] <= q["ts"] and q["ts"] + q["dur"] <= u["ts"] and u["ts"] + u["dur"] <= s["ts"] + s["dur"]
