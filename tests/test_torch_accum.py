@@ -39,6 +39,7 @@ from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, make_train_step
 from test_torch_models import _flax_leaf, _randomize
 from test_torch_vq import _jax_pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODEL_KW = dict(in_channels=1, latent_dim=4, input_dim=32, hidden_dims=(8, 16, 16), fold=4)
 N_MICRO, BATCH, KL_WEIGHT, LR = 2, 8, 0.05, 1e-3

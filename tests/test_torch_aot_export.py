@@ -38,6 +38,7 @@ from midi_vae_tpu_torch.serving.client import ServingClient, ServingError
 from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, state_dict
 from test_torch_variants import _pair as variant_pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -31,6 +31,7 @@ from bench_cuda.reference import vq  # noqa: E402
 from midi_vae_tpu_torch.losses.vq import vq_loss  # noqa: E402
 from midi_vae_tpu_torch.train.config import TrainConfig  # noqa: E402
 from midi_vae_tpu_torch.train.loop import build_run_model  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401 (autouse)
 
 CELL, SEED = "vq16_fold8.train_b2048", 3_000_000_031
 

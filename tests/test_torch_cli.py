@@ -18,6 +18,7 @@ from midi_vae_tpu.cli.train import get_parser as jax_get_parser
 from midi_vae_tpu.train.config import from_yaml as jax_from_yaml
 from midi_vae_tpu_torch.cli.train import args_to_config, get_parser
 from midi_vae_tpu_torch.train.config import TrainConfig, from_yaml, read_yaml
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(_REPO, "configs", "*.yaml")))

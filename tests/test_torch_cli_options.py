@@ -12,7 +12,7 @@ import pytest
 from midi_vae_tpu_torch.cli.train import cli
 from midi_vae_tpu_torch.train.loop import run
 from torch_cli_helpers import OPTION_CASES, OPTION_IDS, OPTION_SPLIT, run_option_case, small_config
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("overrides,item", OPTION_CASES[:OPTION_SPLIT], ids=OPTION_IDS[:OPTION_SPLIT])

@@ -21,7 +21,7 @@ from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
 from midi_vae_tpu_torch.train.loop import run
 from midi_vae_tpu_torch.train.state import state_dict
 from torch_cli_helpers import small_config
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

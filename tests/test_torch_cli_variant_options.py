@@ -7,7 +7,7 @@ an ``rrd:`` stream), under the ids the cases have in that one list.
 import pytest
 
 from torch_cli_helpers import OPTION_CASES, OPTION_IDS, OPTION_SPLIT, run_option_case
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("overrides,item", OPTION_CASES[OPTION_SPLIT:], ids=OPTION_IDS[OPTION_SPLIT:])

@@ -55,6 +55,7 @@ from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, make_train_step
 from test_torch_accum import assert_losses_match, assert_state_matches
 from test_torch_models import _randomize
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C, ATOL = 3, 1e-5
 ARCH_KW = {

@@ -40,6 +40,7 @@ from midi_vae_tpu_torch.data.synthetic import generate_line_images
 from midi_vae_tpu_torch.midi import rasterize
 from midi_vae_tpu_torch.midi.factory import generate_midi_dataset
 from midi_vae_tpu_torch.midi.parse import parse_midi
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_FILES = 16
 

@@ -26,7 +26,7 @@ from midi_vae_tpu_torch.data.registry import image_dataset_sizes
 from midi_vae_tpu_torch.data.sources import RRDStreamDataset, write_rrd
 from midi_vae_tpu_torch.data.synthetic import lines_draws, make_lines_batch, rasterize_lines
 from midi_vae_tpu_torch.ops import cuda_lib
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CACHE_ENVS = (cuda_lib.BUILD_DIR_ENV, "TRITON_CACHE_DIR", "TORCHINDUCTOR_CACHE_DIR")

@@ -26,7 +26,7 @@ import midi_vae_tpu_torch.data.sources as sources
 from midi_vae_tpu.data.fetch import fetch_dataset as jax_fetch_dataset
 from midi_vae_tpu_torch.cli.train import cli
 from midi_vae_tpu_torch.data.fetch import fetch_dataset
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_TRAIN, N_TEST = 256, 64
 

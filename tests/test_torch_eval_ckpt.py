@@ -45,6 +45,7 @@ from midi_vae_tpu_torch.train.state import (
     state_dict,
 )
 from test_torch_models import _randomize
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODEL_KW = dict(in_channels=1, latent_dim=4, input_dim=32, hidden_dims=(8, 16, 16), fold=4)
 DENORM = ((0.5,), (1.0,))

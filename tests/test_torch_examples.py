@@ -15,6 +15,8 @@ import os
 import subprocess
 import sys
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

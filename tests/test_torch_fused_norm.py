@@ -30,6 +30,7 @@ from midi_vae_tpu_torch.models.vae import BatchNorm, ConvBlock, DeconvBlock, Gro
 from midi_vae_tpu_torch.ops import fused_norm
 from midi_vae_tpu_torch.ops.fused_norm import batch_norm_leaky_relu
 from midi_vae_tpu_torch.parallel.collectives import CrossRank
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SLOPE = 0.01
 CLAMPED = 2.7  # a constant channel of 2.7 gives E[x²] − E[x]² < 0 in f32: the clamp is active

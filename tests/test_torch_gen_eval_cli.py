@@ -28,6 +28,7 @@ from midi_vae_tpu_torch.cli.train import cli as train_cli
 from midi_vae_tpu_torch.evaluation.inference import sample_prior
 from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
 from midi_vae_tpu_torch.midi.smf import read_smf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TRAIN = ["--dataset", "vae-lines-synthetic", "--transform-type", "noaug", "--image-size", "28", "--model", "VanillaVAE",
          "--hidden-dims", "8", "16", "--n_features", "4", "--epochs", "1", "--batch-size", "128", "--seed", "0",
@@ -138,7 +139,7 @@ def test_train_final_iwae_and_mig(tmp_path):
     (["--keep-cols", "4"], SystemExit, "--mode continue only"),
     (["--label", "1"], SystemExit, "needs a conditional checkpoint"),
 ], ids=["prior", "continue", "keep_cols", "label"])
-def test_unported_generate_flags_raise_with_their_roadmap_item(trained, argv, error, match):
+def test_generate_flags_refuse_an_unconditional_gaussian_checkpoint(trained, argv, error, match):
     """The two-stage flags and --label are ported, and refuse this
     unconditional Gaussian checkpoint as the JAX CLI does."""
     with pytest.raises(error, match=match):
@@ -153,10 +154,11 @@ _VARIANT_FLAGS = {
 }
 
 
-@pytest.mark.parametrize("overrides,item", [
-    ({"arch": "VQVAE", "stem": "s2d"}, 17), (None, None), ({"torch_compat": True}, 17), ({"norm": "group"}, 17),
+@pytest.mark.parametrize("overrides", [
+    {"arch": "VQVAE", "stem": "s2d"}, None, {"torch_compat": True}, {"norm": "group"},
 ], ids=["vq", "conditional", "torch_compat", "norm"])
-def test_unported_checkpoints_raise_with_their_roadmap_item(trained, tmp_path, monkeypatch, request, overrides, item):
+def test_once_refused_checkpoints_train_evaluate_generate_and_serve(trained, tmp_path, monkeypatch, request,
+                                                                     overrides):
     """Every checkpoint kind these cases once refused is ported. A
     conditional checkpoint trained on a 256-image corpus evaluates under the
     batch labels, IWAE and MIG included. A VQVAE with the s2d stem, a

@@ -11,6 +11,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 _REPO = pathlib.Path(__file__).resolve().parents[1]
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "midi_vae_tpu", "yaml", "msgpack", "orbax", "tensorstore", "zstandard",
               "zarr")
@@ -183,3 +185,30 @@ def test_configs_and_checkpoints_read_with_pyyaml_msgpack_and_flax_blocked():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def _top_level_imports(path):
+    """(module, name) of each import at the top level of ``path``; name is
+    None for ``import module``."""
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            yield from ((a.name, None) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield from ((node.module, a.name) for a in node.names)
+
+
+def test_every_port_test_module_runs_on_one_torch_thread():
+    """Every port test module imports the autouse ``one_torch_thread`` from
+    ``tests/torch_threads.py``, the one place that defines it, and that
+    helper imports nothing but torch and pytest. ``test_torch_parity.py``
+    predates the port: it belongs to the JAX package's tests."""
+    tests = _REPO / "tests"
+    helper = tests / "torch_threads.py"
+    assert {module.split(".")[0] for module, _ in _top_level_imports(helper)} <= {"pytest", "torch"}
+    defining = [p.name for p in sorted(tests.rglob("*.py")) for node in ast.walk(ast.parse(p.read_text(), str(p)))
+                if isinstance(node, ast.FunctionDef) and node.name == "one_torch_thread"]
+    assert defining == ["torch_threads.py"]
+    modules = [p for p in sorted(tests.glob("test_torch_*.py")) if p.name != "test_torch_parity.py"]
+    assert len(modules) > 40
+    lacking = [p.name for p in modules if ("torch_threads", "one_torch_thread") not in set(_top_level_imports(p))]
+    assert not lacking, f"port test modules without one_torch_thread: {lacking}"

@@ -39,6 +39,7 @@ from midi_vae_tpu_torch.midi import calibrate, derasterize, stats
 from midi_vae_tpu_torch.models.registry import build_model
 from midi_vae_tpu_torch.serving.server import InferenceService
 from test_torch_models import _randomize
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODEL_KW = dict(in_channels=1, latent_dim=4, input_dim=32, hidden_dims=(8, 16, 16), fold=4)
 ARCHS = ["FoldedVAE", "VanillaVAE"]

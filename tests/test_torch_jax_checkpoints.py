@@ -43,7 +43,7 @@ from midi_vae_tpu_torch.io.checkpoint import FLAX_STATE, load_checkpoint, model_
 from midi_vae_tpu_torch.models.registry import build_model
 from midi_vae_tpu_torch.train.config import TrainConfig
 from midi_vae_tpu_torch.train.loop import run
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(_HERE, "fixtures", "jax_folded_lines28.msgpack")

@@ -25,6 +25,7 @@ from midi_vae_tpu_torch.interop.from_jax import flax_name_map, load_flax_variabl
 from midi_vae_tpu_torch.models.folded import _depth_to_space, _space_to_depth
 from midi_vae_tpu_torch.models.registry import build_model
 from midi_vae_tpu_torch.models.vae import ConvBlock, DeconvBlock, param_group_label
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 

@@ -27,6 +27,7 @@ from hypothesis import strategies as st
 from hypothesis.extra import numpy as hnp
 
 from midi_vae_tpu_torch.io import flax_msgpack
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = ["int8", "int16", "int32", "int64", "uint8", "uint16", "uint32", "uint64", "float16", "float32", "float64",
           "complex64", "complex128", "bool"]

@@ -37,6 +37,7 @@ from midi_vae_tpu_torch.cli import train_prior
 from midi_vae_tpu_torch.cli.train import cli as train_cli
 from midi_vae_tpu_torch.parallel.launch import spawn
 from torch_rank_cases import build_spec_model, run_cases
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD = 4
 FLAT_SPEC = dict(arch="FoldedVAE", model=dict(in_channels=1, latent_dim=4, input_dim=16, hidden_dims=(8, 16), fold=2),

@@ -24,7 +24,7 @@ from midi_vae_tpu_torch.native import _build
 from midi_vae_tpu_torch.native.midiparse import parse_midi_native
 from midi_vae_tpu_torch.native.rrd import NativeDataset, NativeLoader
 from midi_vae_tpu_torch.ops import cuda_lib
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_ROWS = 75
 

@@ -15,6 +15,7 @@ import torch
 
 from midi_vae_tpu.ops import fused_elbo as jax_ops
 from midi_vae_tpu_torch.ops import fused_elbo as ops
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _bce_case(shape, seed):

@@ -24,6 +24,7 @@ from midi_vae_tpu.train.optim import build_optimizer as jax_build_optimizer
 from midi_vae_tpu_torch.models.vae import param_group_label
 from midi_vae_tpu_torch.train import schedules
 from midi_vae_tpu_torch.train.optim import OPTAX_RULES, build_optimizer, set_step_hyperparams
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # module → parameter → shape: encoder-group and decoder-group names as the models carry them
 SHAPES = {"encoder_0": {"kernel": (6, 5), "bias": (5,)}, "fc_mu": {"kernel": (5, 3)},

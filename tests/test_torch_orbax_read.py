@@ -59,7 +59,7 @@ from midi_vae_tpu_torch.io.zarr2 import read_array
 from midi_vae_tpu_torch.models.registry import build_model
 from midi_vae_tpu_torch.train.loop import run
 from test_torch_jax_checkpoints import CASES, _fixture_config, _jax_checkpoint, no_noise  # noqa: F401
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ts = pytest.importorskip("tensorstore")
 

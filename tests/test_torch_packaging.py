@@ -28,6 +28,8 @@ from pathlib import Path
 import pytest
 import zstandard
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 _REPO = Path(__file__).resolve().parents[1]
 _PYPROJECT = tomllib.loads((_REPO / "pyproject.toml").read_text())
 _JAX_PREFIX, _PORT_PREFIX = "midi-vae-", "midi-vae-torch-"

@@ -58,6 +58,7 @@ from midi_vae_tpu_torch.train.loop import requested_devices
 from test_torch_models import _flax_leaf
 from test_torch_spmd import _flax_variables
 from torch_rank_cases import SGD, build_spec_model, make_data, run_cases, train_steps
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD = 2
 FOLDED = dict(in_channels=1, latent_dim=4, input_dim=32, hidden_dims=(8, 16, 16), fold=4)

@@ -30,6 +30,7 @@ from PIL import Image
 from midi_vae_tpu.data.sources import load_image_folder as jax_load_image_folder
 from midi_vae_tpu_torch.data.sources import load_image_folder
 from midi_vae_tpu_torch.native.png import decode_png, read_png
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 KINDS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4), (3, 8), (4, 8), (4, 16),

@@ -38,6 +38,7 @@ from midi_vae_tpu_torch.models.prior import (
     prior_nll,
     sample_codes_autoregressive,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K, S, C = 16, 4, 3
 ARCHS = {

@@ -50,7 +50,7 @@ from midi_vae_tpu_torch.midi import rasterize
 from midi_vae_tpu_torch.models import registry
 from midi_vae_tpu_torch.models.mlp import MLPVAE
 from midi_vae_tpu_torch.models.vae import VanillaVAE
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

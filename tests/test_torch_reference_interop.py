@@ -48,6 +48,7 @@ from midi_vae_tpu_torch.train.state import create_train_state, state_dict
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmarks"))
 from torch_cpu_baseline import TorchRefVAE  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401 (autouse)
 
 HID = (32, 64, 128, 256)
 ATOL = 1e-6

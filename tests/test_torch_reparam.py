@@ -20,6 +20,7 @@ import torch
 from midi_vae_tpu.ops import fused_elbo as jax_ops
 from midi_vae_tpu_torch.ops import cuda_lib
 from midi_vae_tpu_torch.ops import fused_elbo as ops
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Random123's kat_vectors for philox4x32_10: (counter, key) → output words
 PHILOX_KAT = {

@@ -27,7 +27,7 @@ from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
 from midi_vae_tpu_torch.train.config import TrainConfig
 from midi_vae_tpu_torch.train.loop import run
 from midi_vae_tpu_torch.train.state import state_dict
-from torch_cli_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -40,6 +40,7 @@ from midi_vae_tpu_torch.serving.client import ServingClient, ServingError
 from midi_vae_tpu_torch.serving.wire import NPY_CONTENT_TYPE, npy_dumps, npy_loads
 from midi_vae_tpu_torch.train.state import create_train_state, state_dict
 from test_torch_inference import MODEL_KW, _pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

@@ -27,6 +27,7 @@ from midi_vae_tpu.midi.smf import parse_smf_bytes as jax_parse_smf_bytes
 from midi_vae_tpu.midi.smf import write_smf as jax_write_smf
 from midi_vae_tpu_torch.midi.smf import parse_smf_bytes
 from midi_vae_tpu_torch.native.midiparse import parse_midi_native
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIELDS = ("onset", "duration", "pitch", "velocity")
 

@@ -43,6 +43,7 @@ from midi_vae_tpu_torch.interop.from_jax import flax_name_map, to_flax_layout
 from midi_vae_tpu_torch.parallel.launch import spawn
 from test_torch_models import _flax_leaf
 from torch_rank_cases import SGD, build_spec_model, make_data, run_cases
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD, BATCH, STEPS = 2, 16, 3
 CLAMP = (-60.0, -60.0)

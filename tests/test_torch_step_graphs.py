@@ -34,6 +34,7 @@ from midi_vae_tpu_torch.train.config import from_yaml
 from midi_vae_tpu_torch.train.graphs import StepGraphs
 from midi_vae_tpu_torch.train.loop import build_run_model, build_run_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, load_state_dict, make_train_step, state_dict
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED, EPOCH_SEED = 7, 11

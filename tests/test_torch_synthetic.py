@@ -9,6 +9,7 @@ import torch
 
 from midi_vae_tpu.data.synthetic import make_pianoroll_batch as jax_make_pianoroll_batch
 from midi_vae_tpu_torch.data.synthetic import make_pianoroll_batch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROLLS = 256
 

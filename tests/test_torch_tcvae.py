@@ -46,6 +46,7 @@ from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, make_train_step
 from test_torch_accum import assert_losses_match, assert_state_matches, micro_eps
 from test_torch_models import _randomize
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, D, N_DATA = 12, 5, 785

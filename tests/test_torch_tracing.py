@@ -39,6 +39,7 @@ if ROOT not in sys.path:
 
 from bench_cuda import counts_vq, spans  # noqa: E402
 from bench_cuda.trace import Timeline  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401 (autouse)
 
 B, SEED, NORMS = 4, 7, 8  # the flagship's encoder and decoder hold 8 BatchNorms
 VQ_NORMS = 6  # the VQ trunk's (fold 8, three widths): three in the encoder, two in the decoder, one in the head

@@ -41,6 +41,7 @@ from midi_vae_tpu_torch.train import schedules
 from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, derive_step_seed, make_loss, make_train_step
 from test_torch_models import _flax_leaf, _randomize
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODEL_KW = dict(in_channels=1, latent_dim=4, input_dim=32, hidden_dims=(8, 16, 16), fold=4)
 BATCH = 6

@@ -39,6 +39,7 @@ quiet ``folded`` run the eval values then agree to 8e-6.
 import pytest
 
 import torch_trajectory as tt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _run_case(name, tmp_path):

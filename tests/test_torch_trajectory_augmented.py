@@ -27,6 +27,7 @@ import torch
 
 import torch_trajectory as tt
 from midi_vae_tpu_torch.train.state import make_loss
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _augmented_runs(cfg, tmp_path, port_wrapper=None):

@@ -22,6 +22,7 @@ import torch_trajectory as tt
 from make_trajectory import ARGV, FIXTURE, INIT_SEED, SYNTHETIC_FILES, model_config
 from midi_vae_tpu.data.transforms import get_transform
 from midi_vae_tpu_torch.models.registry import build_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from trajectory_replay import checksum, init_leaves, port_shapes
 
 

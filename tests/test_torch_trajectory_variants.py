@@ -16,6 +16,7 @@ augmented runs).
 """
 
 import torch_trajectory as tt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_resumed_run_matches_the_uninterrupted_jax_run(tmp_path):

@@ -33,6 +33,7 @@ from midi_vae_tpu_torch.io.checkpoint import load_checkpoint
 from midi_vae_tpu_torch.models.prior import sample_codes_autoregressive
 from midi_vae_tpu_torch.serving import server as server_mod
 from midi_vae_tpu_torch.serving.client import ServingClient, ServingError
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 16

@@ -41,6 +41,7 @@ from midi_vae_tpu_torch.models.registry import build_model
 from midi_vae_tpu_torch.models.vae import GroupNorm, param_group_label
 from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 BATCH = 8

@@ -45,6 +45,7 @@ from midi_vae_tpu_torch.models.vq import VectorQuantizerEMA, codebook_metrics
 from midi_vae_tpu_torch.train import schedules
 from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, make_loss, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K, D = 16, 4
 MODELS = {

@@ -21,6 +21,7 @@ from hypothesis.extra import numpy as hnp
 
 from midi_vae_tpu.serving import wire as jax_wire
 from midi_vae_tpu_torch.serving import wire
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = st.one_of(hnp.boolean_dtypes(), hnp.integer_dtypes(endianness="="), hnp.unsigned_integer_dtypes(),
                    hnp.floating_dtypes(endianness="<"), hnp.floating_dtypes(endianness=">"),

@@ -33,6 +33,7 @@ from hypothesis import strategies as st
 
 from midi_vae_tpu.train.config import from_yaml as jax_from_yaml
 from midi_vae_tpu_torch.train.config import from_yaml, read_yaml
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORMS = sorted(glob.glob(os.path.join(_REPO, "tests", "fixtures", "yaml_forms", "*.yaml")))

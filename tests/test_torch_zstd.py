@@ -19,6 +19,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from midi_vae_tpu_torch.native import zstd
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 zstandard = pytest.importorskip("zstandard")
 

@@ -1,16 +1,13 @@
-"""Shared set-up of the port's train-loop tests (``tests/test_torch_cli*.py``
-and the data and checkpoint files): the small run configuration they
-train, the one-epoch run of each option once refused (``run_option_case``),
-whose cases are split over ``test_torch_cli_options.py`` and
-``test_torch_cli_variant_options.py`` under the ids they had in one list,
-and ``one_torch_thread``, an autouse fixture a module imports to run its
-tests on one intra-op thread."""
+"""Shared set-up of the port's train-loop tests (``tests/test_torch_cli*.py``):
+the small run configuration they train, and the one-epoch run of each
+option once refused (``run_option_case``), whose cases are split over
+``test_torch_cli_options.py`` and ``test_torch_cli_variant_options.py``
+under the ids they had in one list."""
 
 import os
 
 import numpy as np
 import pytest
-import torch
 
 import midi_vae_tpu_torch.data.fetch as fetch
 from midi_vae_tpu_torch.data.sources import write_rrd
@@ -26,18 +23,6 @@ from midi_vae_tpu_torch.train.optim import scale_lr
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_FIXTURE = os.path.join(_REPO, "tests", "fixtures", "jax_folded_lines28.msgpack")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The module's tests on one intra-op thread. The suite runs several
-    workers on one host's cores; torch's default of one thread a core in
-    every worker oversubscribes them (spinning threads then wait on each
-    other), and these narrow models gain nothing from the threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def small_config(tmp_path, **overrides) -> TrainConfig:
