@@ -31,7 +31,14 @@ From the repository root. It
    ``F.leaky_relu``; dx within 2e-4 of its norm, ∂scale and ∂bias within
    1e-5), and its device time beside the bytes bound, the plain version's
    and ``F.batch_norm`` + ``F.leaky_relu`` (cuDNN's BatchNorm, the library
-   yardstick, used nowhere in the port);
+   yardstick, used nowhere in the port); then the VQ quantizer's search and
+   sums kernels (CUDA C++, ``ops/vq_search.py``) at the VQ config's 512
+   codes of 16 dimensions, for N = 524,288 and 25,600 vectors (batch 2048
+   and 100), train mode: one launch of each a call, indices equal to the
+   plain version's but at near-ties, z_q bitwise, counts exact, sums within
+   f32 reordering, and their device time beside the f64 bound
+   (``bench_cuda/counts_vq.py``), the plain version's and ``torch.cdist`` +
+   ``argmin``'s (the library yardstick, used nowhere in the port);
 5. trains the flagship FoldedVAE (fold 8, hidden (48, 64, 128, 256),
    latent 10, bf16, batch 2048 of 128×128 synthetic piano rolls, AdamW
    under OneCycle, β 2.5e-4) through the fused kernels, checks that each
@@ -70,7 +77,9 @@ From the repository root. It
 9. drives the two-stage VQ path of ``configs/vq16_fold8.yaml`` on the same
    ``midi-synthetic`` corpus: the train CLI on the FoldedVQVAE at full width
    for 2 of its 60 epochs (loss falls, codebook perplexity and active codes
-   above 1, checkpoints written), the VQ step alone at batch 100 (its
+   above 1, checkpoints written; the VQ kernels launched as its forwards
+   predict: the search once a forward, the sums once a train forward), the
+   VQ step alone at batch 100 (its
    device busy share and the quantizer's share of device time), the model
    on the card against the CPU (decode within 1e-4, code indices equal but
    at near-ties), the prior trainer on the config's transformer for 2 of
@@ -203,11 +212,14 @@ From the repository root. It
    replayed draws take the plain reparameterization), K3-bwd never; each
    step's relative errors and the phase's seconds;
 18. prints one ``{"fused_norm": [...]}`` line (item 4's rows, one a
-   BatchNorm layer) and one ``{"kernels": [...]}`` line: K1–K3, then the
-   fused BatchNorm's forward (``BN``) and backward (``BN-bwd``), whose
-   launches every run of items 5, 7–17 holds to what its forwards predict
-   (each conv-block BatchNorm once a forward and once a backward, twice a
-   forward under remat, none in a step whose statistics span ranks; the
+   BatchNorm layer), one ``{"vq_search": [...]}`` line (item 4's VQ rows,
+   one an N) and one ``{"kernels": [...]}`` line: K1–K3, then the fused
+   BatchNorm's forward (``BN``) and backward (``BN-bwd``) and the VQ search
+   (``VQ``, timed at N = 524,288) and sums (``VQ-sums``), whose launches
+   every run of items 5, 7–17 holds to what its forwards predict (each
+   conv-block BatchNorm once a forward and once a backward, twice a
+   forward under remat, none in a step whose statistics span ranks; a VQ
+   model's search once a forward and its sums once a train forward; the
    artifact phase holds one request on each server; ``accum_launches`` for the
    accumulated run, ``variant_launches`` for every run of item 10,
    ``model_variant_launches`` for item 11, ``artifact_launches`` for item
@@ -247,7 +259,7 @@ from midi_vae_tpu_torch.data.synthetic import make_pianoroll_batch
 from midi_vae_tpu_torch.losses.schedules import kl_weight_schedule
 from midi_vae_tpu_torch.models.registry import build_model
 from midi_vae_tpu_torch.models.vae import BatchNorm, VanillaVAE, param_group_label
-from midi_vae_tpu_torch.ops import cuda_lib, fused_norm
+from midi_vae_tpu_torch.ops import cuda_lib, fused_norm, vq_search
 from midi_vae_tpu_torch.ops import fused_elbo as ops
 from midi_vae_tpu_torch.train.optim import build_optimizer
 from midi_vae_tpu_torch.train.state import create_train_state, derive_step_seed, make_train_step
@@ -289,6 +301,14 @@ KERNEL_INFO = {
                "midi_vae_tpu/ops/fused_elbo.py:106", ("k3_reparam_kl_bwd_kernel",)),
 }
 
+VQ_SOURCE = "midi_vae_tpu_torch/csrc/vq_search.cu"
+# launch key → (the function whose ``launches`` count it, the kernel it counts); they replace no TPU kernel: the
+# JAX package leaves the quantizer to XLA
+VQ_INFO = {
+    "VQ": (vq_search.nearest_codes, "VQ vq_search_kernel (nearest code, z_q and the block sums)"),
+    "VQ-sums": (vq_search.code_sums, "VQ-sums vq_code_sums_kernel (the block sums summed)"),
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -300,14 +320,17 @@ def check(cond: bool, msg: str) -> None:
 
 
 def launch_counts() -> dict:
-    """Launches of K1–K3 and of the fused BatchNorm + LeakyReLU (``BN``, its
-    backward ``BN-bwd``)."""
-    return {**ops.launch_counts(), **fused_norm.launch_counts()}
+    """Launches of K1–K3, of the fused BatchNorm + LeakyReLU (``BN``, its
+    backward ``BN-bwd``) and of the VQ search and sums (``VQ``,
+    ``VQ-sums``)."""
+    return {**ops.launch_counts(), **fused_norm.launch_counts(), **{k: fn.launches for k, (fn, _) in VQ_INFO.items()}}
 
 
 def reset_launch_counts() -> None:
     ops.reset_launch_counts()
     fused_norm.reset_launch_counts()
+    for fn, _ in VQ_INFO.values():
+        fn.launches = 0
 
 
 def elbo_launches(counts: dict) -> dict:
@@ -320,27 +343,31 @@ def fused_norms(model) -> int:
     return sum(type(getattr(m, m.norm_name)) is BatchNorm for m in model.modules() if getattr(m, "norm_name", None))
 
 
-def norm_launches(model, train_forwards: int, other_forwards: int = 0, synced: bool = False) -> dict:
-    """The fused BatchNorm's launches that forwards of ``model`` on the card
-    predict: each conv-block BatchNorm once a forward (twice a train
-    forward under remat, whose backward reruns it) and once a train
-    forward's backward; none in a train forward whose statistics span two
-    or more ranks (``synced``). A replayed CUDA graph counts as its
-    forward."""
+def model_launches(model, train_forwards: int, other_forwards: int = 0, synced: bool = False) -> dict:
+    """The launches of the fused BatchNorm and of the VQ kernels that
+    forwards of ``model`` on the card predict: each conv-block BatchNorm
+    once a forward (twice a train forward under remat, whose backward
+    reruns it) and once a train forward's backward, none in a train
+    forward whose statistics span two or more ranks (``synced``); a VQ
+    model's search once a forward and its sums once a train forward (the
+    statistics' all-reduce comes after them). A replayed CUDA graph counts
+    as its forward."""
     n = fused_norms(model)
     train = 0 if synced else train_forwards
-    return {"BN": n * (train * (2 if getattr(model, "remat", False) else 1) + other_forwards), "BN-bwd": n * train}
+    vq = getattr(model, "latent_kind", "gaussian") == "vq"
+    return {"BN": n * (train * (2 if getattr(model, "remat", False) else 1) + other_forwards), "BN-bwd": n * train,
+            "VQ": (train_forwards + other_forwards) if vq else 0, "VQ-sums": train_forwards if vq else 0}
 
 
-def expected_norm_launches(r: dict) -> dict:
-    """:func:`norm_launches` of a train-CLI run from the forwards it reports:
+def expected_model_launches(r: dict) -> dict:
+    """:func:`model_launches` of a train-CLI run from the forwards it reports:
     its train forwards, reconstruction grids and eval batches; the auto step
     over a mesh of two or more ranks (and any VQ step over one) syncs its
     statistics."""
     f, model = r["forwards"], r["state"].model
     synced = r["mesh"] is not None and math.prod(r["mesh"]["shape"]) > 1 and (
         r["config"]["step_impl"] == "auto" or getattr(model, "latent_kind", "gaussian") == "vq")
-    return norm_launches(model, f["train_forwards"], f["grid"] + f["eval_batches"], synced)
+    return model_launches(model, f["train_forwards"], f["grid"] + f["eval_batches"], synced)
 
 
 def card_line() -> str:
@@ -741,6 +768,83 @@ def fused_norm_phase(dev) -> list:
     return rows
 
 
+VQ_VECTORS = (524_288, 25_600)  # a quantizer call at batch 2048 and 100 of configs/vq16_fold8.yaml's 16×16 grid
+VQ_CODES, VQ_DIM = 512, 16  # its codebook
+
+
+def vq_search_phase(dev) -> list:
+    """The VQ quantizer's search and sums kernels (``ops/vq_search.py``) at
+    the VQ config's shapes, train mode, through ``nearest_codes`` and
+    ``code_sums`` as the quantizer calls them: one launch of each a call;
+    indices equal to the plain version's but at near-ties (the two codes'
+    plain distances within 1e-5 relative, ``tests/test_torch_vq.py``'s
+    rule), the eval search's equal to the train search's, z_q bitwise the
+    codebook's rows, the counts exact, each sum within the f32 reordering
+    bound of its exact value (f64); then the device time of the kernels, of
+    the plain version (``nearest_codes_plain`` + ``code_sums_plain``) and of
+    ``torch.cdist`` + ``argmin`` in f32 (the library yardstick, used
+    nowhere in the port), beside the bound (``bench_cuda/counts_vq.py``, z_e
+    in bf16). Returns one row per N."""
+    from bench_cuda import counts_vq
+    from midi_vae_tpu_torch.models.vq import VectorQuantizerEMA
+
+    k, d = VQ_CODES, VQ_DIM
+    cb = VectorQuantizerEMA(k, d, generator=torch.Generator().manual_seed(0)).codebook.to(dev)
+    rows = []
+    for n in VQ_VECTORS:
+        flat = torch.randn(n, d, generator=torch.Generator(device=dev).manual_seed(n), device=dev)
+        flat = flat.to(torch.bfloat16).float()  # z_e as the model hands it over
+
+        def kernels():
+            idx, z_q, partials = vq_search.nearest_codes(flat, cb, train=True)
+            return (idx, z_q, *vq_search.code_sums(flat, idx, partials, k))
+
+        def plain():
+            idx, z_q = vq_search.nearest_codes_plain(flat, cb)
+            return (idx, z_q, *vq_search.code_sums_plain(flat, idx, k))
+
+        def library():
+            return torch.argmin(torch.cdist(flat, cb), dim=1)
+
+        before = launch_counts()
+        idx, z_q, counts, sums = kernels()
+        torch.cuda.synchronize(dev)
+        calls = {key: launch_counts()[key] - before[key] for key in VQ_INFO}
+        check(calls == {"VQ": 1, "VQ-sums": 1}, f"the VQ kernels launched {calls} for one train-mode call")
+        want, _ = vq_search.nearest_codes_plain(flat, cb)
+        rows_apart = torch.nonzero(idx != want).flatten()
+        d2 = vq_search.distances_plain(flat[rows_apart], cb).double()
+        a, b = d2.gather(1, idx[rows_apart, None]), d2.gather(1, want[rows_apart, None])
+        gap = float(((a - b).abs() / torch.maximum(a.abs(), b.abs())).max()) if len(rows_apart) else 0.0
+        check(gap <= 1e-5, f"N {n}: {len(rows_apart)} indices differ from the plain version's, the worst "
+              f"{gap:.3e} apart in relative distance (near-ties are within 1e-5)")
+        check(torch.equal(vq_search.nearest_codes(flat, cb, train=False)[0], idx), f"N {n}: eval search != train")
+        check(idx.dtype == torch.int64 and torch.equal(z_q, cb[idx]), f"N {n}: z_q is not the codebook's rows")
+        check(torch.equal(counts, torch.bincount(idx, minlength=k).float()), f"N {n}: counts not exact")
+        exact = torch.zeros(k, d, dtype=torch.float64, device=dev).index_add_(0, idx, flat.double())
+        size = torch.zeros(k, d, dtype=torch.float64, device=dev).index_add_(0, idx, flat.double().abs())
+        # an f32 sum of m terms in any order is within γ(m - 1)·Σ|terms| of the exact sum, γ(j) = j·u / (1 - j·u)
+        ju = (counts.double().clamp_min(1)[:, None] - 1) * 2**-24
+        err = (sums.double() - exact).abs()
+        check(bool(torch.all(err <= ju / (1 - ju) * size)), f"N {n}: sums beyond f32 reordering of the exact sums")
+        row = {"n": n, "k": k, "d": d, "indices_differing": len(rows_apart), "worst_tie_gap": gap,
+               "sums_rel": float(err.norm() / exact.norm()), "codes_used": int((counts > 0).sum()),
+               "bound_ms": 1e3 * counts_vq.least_seconds(n, k, d, 2)}
+        nbytes, flops = counts_vq.least_work(n, k, d, 2)
+        row["bound_by"] = "operations" if flops / counts_vq.PEAK_F64_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        for name, fn in (("kernel", kernels), ("plain", plain), ("library", library)):
+            row[f"{name}_device_ms"], row[f"{name}_kernels"] = device_ms_per_call(fn, dev)
+            row[f"{name}_ms"] = time_ms(fn)
+        rows.append(row)
+        log(f"  N {n}, K {k}, D {d}: {len(rows_apart)} indices differ from the plain version's (worst gap "
+            f"{gap:.2e} relative), z_q bitwise, counts exact, sums within f32 reordering ({row['sums_rel']:.2e} of "
+            f"their norm), {row['codes_used']} codes used; device ms kernel {row['kernel_device_ms']:.4f} "
+            f"({row['kernel_kernels']:.0f} kernels), plain {row['plain_device_ms']:.4f} ({row['plain_kernels']:.0f}), "
+            f"library {row['library_device_ms']:.4f} ({row['library_kernels']:.0f}); bound {row['bound_ms']:.4f}; "
+            f"events ms kernel {row['kernel_ms']:.4f}, plain {row['plain_ms']:.4f}, library {row['library_ms']:.4f}")
+    return rows
+
+
 # ================================================================= train
 
 
@@ -783,7 +887,7 @@ def train_phase(dev):
 
     log(f"  losses: first {losses[0]:.6f}, last five {[round(v, 6) for v in losses[-5:]]}")
     check(statistics.mean(losses[-5:]) < losses[0], "loss did not fall over the run")
-    want = {**{k: TRAIN_STEPS for k in ops.KERNEL_WRAPPERS}, **norm_launches(model, TRAIN_STEPS)}
+    want = {**{k: TRAIN_STEPS for k in ops.KERNEL_WRAPPERS}, **model_launches(model, TRAIN_STEPS)}
     check(counts == want, f"launched {counts} in {TRAIN_STEPS} fused steps, expected {want}")
     rel = abs(losses[0] - ref_loss) / abs(ref_loss)
     log(f"  first fused step loss {losses[0]:.7f} vs unfused step with the plain draw {ref_loss:.7f}: rel {rel:.2e}")
@@ -905,13 +1009,14 @@ def expected_cli_launches(r: dict, epochs: int) -> dict:
     forward (one per step, or one per micro-batch under ``--grad-accum``);
     K3's forward once per train forward, once per reconstruction grid and
     once per eval batch (the eval forward samples z, as the JAX package's
-    does); the fused BatchNorm as :func:`expected_norm_launches`."""
+    does); the fused BatchNorm and the VQ kernels as
+    :func:`expected_model_launches`."""
     f = r["forwards"]
     check(f["train_steps"] == r["steps_per_epoch"] * epochs,
           f"{f['train_steps']} train steps in {epochs} epochs of {r['steps_per_epoch']}")
     fwd = f["train_forwards"]
     return {"K1": fwd, "K2": fwd, "K3": fwd + f["grid"] + f["eval_batches"], "K3-bwd": fwd,
-            **expected_norm_launches(r)}
+            **expected_model_launches(r)}
 
 
 def log_cli_run(label: str, r: dict, card: str) -> None:
@@ -1034,7 +1139,7 @@ def cli_phase(dev, root: Path, card: str) -> dict:
     metrics = [r3["train"]["loss"]] + [r3[p][k] for p in ("test", "final_test", "final_train")
                                        for k in ("cross-entropy", "bce-objective", "kl", "mse", "mae")]
     check(all(math.isfinite(v) for v in metrics), f"non-finite metrics in the as-written run: {metrics}")
-    counts3, want3 = launch_counts(), {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_norm_launches(r3)}
+    counts3, want3 = launch_counts(), {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_model_launches(r3)}
     check(counts3 == want3, f"the unfused run launched {counts3}, expected {want3}")
     log(f"  as written: train loss {r3['train']['loss']:.6f}, final test bce-objective "
         f"{r3['final_test']['bce-objective']:.6f}, active units {r3['final_test']['active-units']}; no K1-K3 launched, "
@@ -1303,8 +1408,9 @@ def vq_train(root: Path, models: Path, card: str):
 def vq_step_timing(r: dict, dev, card: str) -> None:
     """The VQ train step alone at the CLI's batch: the median of 20 steps
     closed by reading the loss, the device's busy share of it, and the
-    quantizer's share of the step's device time (distances, argmin, EMA
-    update: the quantizer's train-mode call on the step's z_e, alone)."""
+    quantizer's share of the step's device time (the search and sums
+    kernels and the EMA update: the quantizer's train-mode call on the
+    step's z_e, alone)."""
     from midi_vae_tpu_torch.data.transforms import get_transform
 
     spec, _ = get_transform("pianoroll", 128, {"normalization": "midi-synthetic"})
@@ -1334,7 +1440,7 @@ def vq_step_timing(r: dict, dev, card: str) -> None:
     log(f"  VQ step alone at batch {CLI_BATCH} (bf16): median {med:.3f} ms, min {min(step_ms):.3f} ms over 20 steps "
         f"({CLI_BATCH / med * 1e3:.1f} samples/s); device busy {step_dev:.3f} ms/step ({step_dev / med:.1%}, "
         f"{step_kernels:.0f} kernels and copies) [{card}]")
-    log(f"  quantizer (distances in f64→f32, argmin, EMA update) on z_e {list(z_e.shape)}: device {q_dev:.4f} ms per "
+    log(f"  quantizer (search and sums kernels, EMA update) on z_e {list(z_e.shape)}: device {q_dev:.4f} ms per "
         f"call ({q_kernels:.0f} kernels), {q_dev / step_dev:.1%} of the step's device time [{card}]")
 
 
@@ -1555,7 +1661,7 @@ def vq_serve(best: Path, prior_path: Path, model, prior, x, dev, card: str) -> N
 def vq_phase(dev, root: Path, card: str) -> dict:
     """The two-stage VQ path (module docstring, item 9). Returns the launches
     of its stage-1 train run: K1–K3 none (nor anywhere in the phase), the
-    fused BatchNorm's as the run's forwards predict."""
+    fused BatchNorm's and the VQ kernels' as the run's forwards predict."""
     from midi_vae_tpu_torch.cli.train_prior import load_prior
 
     t_phase = time.perf_counter()
@@ -1566,7 +1672,7 @@ def vq_phase(dev, root: Path, card: str) -> dict:
     reset_launch_counts()
 
     r, best = vq_train(root, models, card)
-    stage1, want = launch_counts(), {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_norm_launches(r)}
+    stage1, want = launch_counts(), {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_model_launches(r)}
     log(f"  stage 1 launches {stage1}, expected {want} (forwards {r['forwards']})")
     check(stage1 == want, f"the VQ stage-1 run launched {stage1}, expected {want}")
     vq_step_timing(r, dev, card)
@@ -1651,14 +1757,15 @@ def fused_run(argv: list, epochs: int, label: str, card: str) -> tuple:
 
 def unfused_run(argv: list, label: str, card: str) -> dict:
     """A train-CLI run on a path that runs no fused-ELBO kernel: 0 launches
-    of K1–K3, the fused BatchNorm's as its forwards predict."""
+    of K1–K3, the fused BatchNorm's and the VQ kernels' as its forwards
+    predict."""
     from midi_vae_tpu_torch.cli import train as train_cli
 
     reset_launch_counts()
     r = train_cli.cli(argv)
     log_cli_run(label, r, card)
     counts = launch_counts()
-    want = {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_norm_launches(r)}
+    want = {**{k: 0 for k in ops.KERNEL_WRAPPERS}, **expected_model_launches(r)}
     log(f"  launches {counts}, expected {want} (forwards {r['forwards']})")
     check(counts == want, f"{label}: launched {counts}, expected {want}")
     return r
@@ -1725,7 +1832,8 @@ def accum_step_vs_unfused(dev) -> None:
 def vq_accum_run(root: Path, models: Path, card: str) -> None:
     """configs/vq16_fold8.yaml with --grad-accum 2 for one epoch: finite
     loss, the quantizer's three EMA buffers moved from their initial values
-    (captured as the train loop builds the model), no kernel launched."""
+    (captured as the train loop builds the model), no K1–K3 launched, the
+    fused BatchNorm and the VQ kernels as its micro forwards predict."""
     import midi_vae_tpu_torch.train.loop as loop_mod
 
     initial, real = {}, loop_mod.build_model
@@ -2124,7 +2232,7 @@ def flagship_variant_window(dev, card: str, label: str, steps: int, **variant) -
     counts = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
-    want = {**{k: steps for k in ops.KERNEL_WRAPPERS}, **norm_launches(model, steps)}
+    want = {**{k: steps for k in ops.KERNEL_WRAPPERS}, **model_launches(model, steps)}
     check(counts == want, f"{label}: launched {counts} in {steps} fused steps, expected {want}")
     rel = abs(losses[0] - ref_loss) / abs(ref_loss)
     check(rel <= 1e-3, f"{label}: fused first-step loss {losses[0]} vs unfused {ref_loss}")
@@ -2352,11 +2460,11 @@ def artifact_phase(dev, root: Path, card: str) -> dict:
             "|err|: " + "; ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f"; /healthz {health['model']} [{card}]")
         check(max(errs.values()) <= 1e-5, f"the artifact server disagrees with the checkpoint server: {errs}")
         for where, url in urls.items():  # a reconstruction: one forward, the fused BatchNorm once a layer
-            before = fused_norm.launch_counts()
+            before, want = launch_counts(), model_launches(model, 0, 1)
             ServingClient(url).reconstruct(x[:1])
-            probe = {k: v - before[k] for k, v in fused_norm.launch_counts().items()}
-            check(probe == norm_launches(model, 0, 1), f"a {where} /reconstruct launched {probe} of the fused "
-                  f"BatchNorm, expected {norm_launches(model, 0, 1)}")
+            probe = {k: launch_counts()[k] - before[k] for k in want}
+            check(probe == want, f"a {where} /reconstruct launched {probe} of the fused BatchNorm and the VQ "
+                  f"kernels, expected {want}")
         log(f"  one /reconstruct launches the fused BatchNorm {fused_norms(model)} times on either server, the "
             "exported programs' operators included")
         lat = {}
@@ -2553,7 +2661,7 @@ def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
                           **FLAGSHIP).state_dict()
     xs = flagship_batches(dev, PARALLEL_STEPS)
     ref = step_window(flagship_state(dev, weights), make_train_step(kl, fused_loss=True), xs, dev)
-    want = {**{k: PARALLEL_STEPS for k in ops.KERNEL_WRAPPERS}, **norm_launches(ref["state"].model, PARALLEL_STEPS)}
+    want = {**{k: PARALLEL_STEPS for k in ops.KERNEL_WRAPPERS}, **model_launches(ref["state"].model, PARALLEL_STEPS)}
     check(ref["launches"] == want, f"the non-distributed window launched {ref['launches']}, expected {want}")
     total = {k: 0 for k in ops.KERNEL_WRAPPERS}
 
@@ -2569,7 +2677,7 @@ def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
         bitwise = w["losses"] == ref["losses"]
         rel = max(abs(a - b) / abs(b) for a, b in zip(w["losses"], ref["losses"]))
         check(bitwise or rel <= 1e-6, f"world-1 {impl} losses differ from the non-distributed step: rel {rel}")
-        want = {**{k: PARALLEL_STEPS for k in ops.KERNEL_WRAPPERS}, **norm_launches(w["state"].model, PARALLEL_STEPS)}
+        want = {**{k: PARALLEL_STEPS for k in ops.KERNEL_WRAPPERS}, **model_launches(w["state"].model, PARALLEL_STEPS)}
         check(w["launches"] == want, f"{w['launches']} launched in {PARALLEL_STEPS} world-1 {impl} steps, "
               f"expected {want} (a group of one rank keeps the statistics local: fused)")
         per_step = {k: v / PARALLEL_STEPS for k, v in w["collectives"].items()}
@@ -2602,8 +2710,8 @@ def parallel_phase(dev, root: Path, card: str, flagship: dict) -> dict:
     model = flagship_state(dev, weights).model
     for r, (auto_l, spmd_l) in enumerate(two["launches"]):
         elbo = {k: TWO_RANK_STEPS for k in ops.KERNEL_WRAPPERS}
-        want = ({**elbo, **norm_launches(model, TWO_RANK_STEPS, synced=True)},
-                {**elbo, **norm_launches(model, TWO_RANK_STEPS)})
+        want = ({**elbo, **model_launches(model, TWO_RANK_STEPS, synced=True)},
+                {**elbo, **model_launches(model, TWO_RANK_STEPS)})
         check((auto_l, spmd_l) == want, f"rank {r}: launched {auto_l} (auto), {spmd_l} (shard_map) in "
               f"{TWO_RANK_STEPS} steps, expected {want}")
     check(all(math.isfinite(v) for v in two["spmd_losses"]) and all(two["spmd_equal"]),
@@ -3611,7 +3719,7 @@ def trajectory_run(tr, meta: dict, arrays: dict, dtype: str, init: Path, models:
     counts = launch_counts()
     steps, f = r["total_step"], r["forwards"]
     log_cli_run(f"the JAX fixture's {dtype} run replayed, fused", r, card)
-    want_counts = {"K1": steps, "K2": steps, "K3": f["grid"], "K3-bwd": 0, **expected_norm_launches(r)}
+    want_counts = {"K1": steps, "K2": steps, "K3": f["grid"], "K3-bwd": 0, **expected_model_launches(r)}
     log(f"  launches {counts}, expected {want_counts}: K1 and K2 once per step; K3 only for the {f['grid']} "
         "reconstruction grids, whose draw is not replayed (the steps and sweeps take the fixture's draws through "
         "the plain reparameterization, so K3 and its backward stay out of them; k3_phase holds K3); the fused "
@@ -3727,6 +3835,8 @@ def main() -> int:
         part.update(more)
     log("fused BatchNorm + LeakyReLU (Triton) at the flagship's BatchNorm layers:")
     norm_rows = fused_norm_phase(dev)
+    log("VQ search and sums (CUDA C++) at the VQ config's shapes:")
+    vq_rows = vq_search_phase(dev)
     log(f"train ({TRAIN_STEPS} fused steps, flagship FoldedVAE):")
     model, counts, device_ms, flagship_window = train_phase(dev)
     log("reconstruct:")
@@ -3786,8 +3896,16 @@ def main() -> int:
         kernels.append({"name": name, "route": "triton", "source": "midi_vae_tpu_torch/ops/fused_norm.py",
                         "replaces": None, **{run: c[key] for run, c in runs.items()}})
         log(f"  {key}: " + ", ".join(f"{run} {c[key]}" for run, c in runs.items()))
+    cell = vq_rows[0]  # the VQ cell's N; the vq_search line has both
+    for key, (_, name) in VQ_INFO.items():
+        times = {"ms": cell["kernel_ms"], "device_ms": cell["kernel_device_ms"], "plain_ms": cell["plain_ms"],
+                 "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": cell["library_ms"]}
+        kernels.append({"name": name, "route": "cuda", "source": VQ_SOURCE, "replaces": None,
+                        **{run: c[key] for run, c in runs.items()}, **(times if key == "VQ" else {})})
+        log(f"  {key}: " + ", ".join(f"{run} {c[key]}" for run, c in runs.items()))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"fused_norm": norm_rows}))
+    print(json.dumps({"vq_search": vq_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

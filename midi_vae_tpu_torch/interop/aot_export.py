@@ -5,7 +5,8 @@
 ``ExportedProgram``s, weights included, which a deployment process loads
 with ``torch.export.load`` and runs without this package's model code or
 a checkpoint. A program exported for ``cuda`` calls the fused BatchNorm's
-operators (``ops/fused_norm.py``), which loading it needs registered:
+operators (``ops/fused_norm.py``) and, for a VQ model, the quantizer's
+search (``ops/vq_search.py``), which loading it needs registered:
 importing this module registers them. Programs, as in the JAX package (``serving/server.py``
 semantics):
 
@@ -39,8 +40,9 @@ device types exported for, and ``torch_version`` takes the place of
 ``calling_convention_version``. The programs are not compiled ahead of
 time (AOTInductor): they run eagerly, op by op, as the live model does.
 
-:class:`AOTServingBundle` loads a directory with torch and
-``ops/fused_norm.py`` alone (no module of ``midi_vae_tpu_torch.models``) and validates the manifest at load: a
+:class:`AOTServingBundle` loads a directory with torch,
+``ops/fused_norm.py`` and ``ops/vq_search.py`` alone (no module of
+``midi_vae_tpu_torch.models``) and validates the manifest at load: a
 serving device type the artifact was not exported for, or a torch older
 than the exporter's, raises before any request.
 
@@ -65,7 +67,7 @@ import torch.nn as nn
 
 from midi_vae_tpu_torch.core.device import DeviceLike, resolve_device
 from midi_vae_tpu_torch.core.sampling import sample_codes_autoregressive
-from midi_vae_tpu_torch.ops import fused_norm  # noqa: F401  (registers the operators a cuda program calls)
+from midi_vae_tpu_torch.ops import fused_norm, vq_search  # noqa: F401  (register the operators a cuda program calls)
 
 MANIFEST_NAME = "manifest.json"
 ARTIFACT_SUFFIX = ".pt2"
@@ -220,7 +222,8 @@ def _version(v: str) -> tuple:
 
 class AOTServingBundle:
     """An exported directory, loaded onto ``device`` (the GPU unless the
-    caller asks for the CPU); needs torch and ``ops/fused_norm.py`` only. Programs are attributes:
+    caller asks for the CPU); needs torch, ``ops/fused_norm.py`` and
+    ``ops/vq_search.py`` only. Programs are attributes:
     ``bundle.reconstruct(x[, y])``, ``encode``, ``decode`` and, for an
     artifact exported with a prior, ``sample(seed, temperature, y)`` and
     ``sample_codes`` (the same draw, before the decode). They take numpy

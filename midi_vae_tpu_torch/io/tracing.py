@@ -36,10 +36,13 @@ Spans and counters of the port (PERF.md §3 says which metric reads each):
   only while the graphs are captured, at the first step of a batch shape;
 - ``model.quantize`` and ``model.codebook_update``: ``models/vq.py``
   ``VectorQuantizerEMA.forward``, the nearest-code search with the code
-  gather and the straight-through value, then (in training) the EMA
-  update, one range each a call, side by side;
+  gather and the straight-through value, then (in training) the sums'
+  reduction and the EMA update, one range each a call, side by side;
 - counters ``vq.calls`` and ``vq.vectors``: every quantizer call adds one
-  and its number of vectors (a host integer from the shape).
+  and its number of vectors (a host integer from the shape);
+- counter ``vq.fused_calls``: the same call adds one when it took the
+  search and sum kernels (counted in ``ops/vq_search.py``
+  ``nearest_codes``, where they are taken; on a card only).
 
 Counters always count.
 """

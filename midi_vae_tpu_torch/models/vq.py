@@ -20,24 +20,37 @@ Semantics kept from the JAX package:
 - distances ``‖z‖² − 2 z·eᵀ + ‖e‖²`` in f32, whatever the model's compute
   dtype. The cross term is computed in f64 and rounded to f32, so no
   TF32 setting of the process can lower its precision (TF32 ranks
-  near-ties wrongly); ``argmin`` takes the first index on a tie;
+  near-ties wrongly); the argmin takes the first index on a tie;
 - the EMA counts and sums (``one_hot(idx).T @ 1`` and ``one_hot(idx).T @ z``
-  in JAX) are ones and vectors scatter-added into [K] and [K, D] f32
-  buffers (``index_add_``): the same sums, in another order; the counts
-  are exact below 2^24 vectors. Unlike ``bincount``, which reads the
-  indices' range back to the host on a CUDA tensor, they make no host
-  sync.
+  in JAX) are f32 sums of ones and vectors into [K] and [K, D]: the same
+  sums, in another order; the counts are exact below 2^24 vectors. They
+  make no host sync.
   Under ``parallel.collectives.cross_rank_statistics`` they are summed
   over the group's ranks before the update, so every rank's codebook
   takes the global batch's update (JAX ``psum`` over ``bn_axis_name``);
 - Laplace smoothing of the cluster sizes before the codebook division;
 - the straight-through output ``z_e + (z_q − z_e).detach()``.
 
+Where it runs: on a card (CUDA tensors, the f32 codebook every model
+dtype but f64 keeps), the search and the sums are the hand-written
+kernels of ``ops/vq_search.py``: one launch finds each vector's nearest
+code, in f64 cross terms rounded to f32 and an f32 distance in registers,
+and writes the index, z_q and, in training, each block's partial counts
+and sums; a second launch sums those. Nothing of size [N, K] is written.
+Everywhere else (the CPU, an f64 model) the plain version of the same
+module runs: :meth:`VectorQuantizerEMA.distances` (``distances_plain``),
+``argmin`` and ``index_select``, then ``index_add_`` for the sums
+(``code_sums_plain``; unlike ``bincount``, which reads the indices' range
+back to the host on a CUDA tensor). The rules above hold on both; an
+index may differ between the two only where two codes' f32 distances are
+a rounding of the cross term apart.
+
 While a profiler records, a call is the span ``model.quantize``
-(distances, argmin, the code gather and the straight-through value) and,
-in training, ``model.codebook_update`` (the EMA update) after it; the
-counters ``vq.calls`` and ``vq.vectors`` count every call and its
-vectors (``io/tracing.py``).
+(the search, the code gather and the straight-through value) and,
+in training, ``model.codebook_update`` (the sums' reduction and the EMA
+update) after it; the counters ``vq.calls`` and ``vq.vectors`` count every
+call and its vectors, and ``vq.fused_calls`` the calls that took the
+kernels (``io/tracing.py``).
 
 ``encode`` returns the flattened pre-quantization latent as ``mu`` (NHWC
 order) with ``log_var`` zero; ``decode``/``decode_logits`` quantize a
@@ -59,6 +72,7 @@ from midi_vae_tpu_torch.core.types import EncoderOutput, ModelOutput
 from midi_vae_tpu_torch.io import tracing
 from midi_vae_tpu_torch.models.folded import FoldedVAE
 from midi_vae_tpu_torch.models.vae import Conv, VanillaVAE
+from midi_vae_tpu_torch.ops import vq_search
 from midi_vae_tpu_torch.parallel.collectives import all_reduce_sum
 
 
@@ -81,24 +95,21 @@ class VectorQuantizerEMA(nn.Module):
         self.register_buffer("embed_avg", codebook.clone())
 
     def distances(self, flat: torch.Tensor) -> torch.Tensor:
-        """[N, D] f32 vectors → [N, K] squared distances to the codes, f32."""
-        cb = self.codebook
-        cross = (flat.double() @ cb.double().T).float()
-        return torch.sum(flat * flat, dim=1, keepdim=True) - 2.0 * cross + torch.sum(cb * cb, dim=1)[None, :]
+        """[N, D] f32 vectors → [N, K] squared distances to the codes, f32 (the plain version's)."""
+        return vq_search.distances_plain(flat, self.codebook)
 
     def forward(self, z_e: torch.Tensor, train: bool):
         """``z_e`` [..., D] → (straight-through z_q [..., D] f32, indices [...]);
         ``train=True`` also applies one EMA update from this batch."""
         with tracing.span("model.quantize"):
-            flat = z_e.reshape(-1, self.embed_dim).float()
-            with torch.no_grad():
-                idx = torch.argmin(self.distances(flat), dim=1)
-                z_q = self.codebook.index_select(0, idx)
             z_e32 = z_e.float()
+            flat = z_e32.reshape(-1, self.embed_dim)  # a view where z_e is dense: one f32 copy, not two
+            with torch.no_grad():
+                idx, z_q, partials = vq_search.nearest_codes(flat, self.codebook, train=train)
             z_st = z_e32 + (z_q.reshape(z_e.shape) - z_e32).detach()
         if train:
-            with tracing.span("model.codebook_update"):
-                self._ema_update(flat, idx)
+            with tracing.span("model.codebook_update"), torch.no_grad():
+                self._ema_apply(*vq_search.code_sums(flat, idx, partials, self.num_codes))
         tracing.count("vq.calls", 1)
         tracing.count("vq.vectors", flat.shape[0])
         return z_st, idx.reshape(z_e.shape[:-1])
@@ -107,9 +118,13 @@ class VectorQuantizerEMA(nn.Module):
 
     @torch.no_grad()
     def _ema_update(self, flat: torch.Tensor, idx: torch.Tensor) -> None:
+        """One EMA update from ``flat``'s vectors picked by ``idx``, the sums on the plain version."""
+        self._ema_apply(*vq_search.code_sums_plain(flat.detach(), idx, self.num_codes))
+
+    @torch.no_grad()
+    def _ema_apply(self, counts: torch.Tensor, dw: torch.Tensor) -> None:
+        """The EMA update from this rank's counts [K] and sums [K, D]."""
         k = self.num_codes
-        counts = flat.new_zeros(k).index_add_(0, idx, flat.new_ones(idx.shape[0]))
-        dw = torch.zeros_like(self.embed_avg).index_add_(0, idx, flat.detach())
         if self.cross_rank is not None:  # the sums of the whole group's batch, in one all-reduce
             both = all_reduce_sum(torch.cat([counts[:, None], dw], dim=1), self.cross_rank.group)
             counts, dw = both[:, 0], both[:, 1:]
