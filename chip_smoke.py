@@ -211,7 +211,15 @@ From the repository root. It
    (``F64_RTOL``); K1 and K2 once per step, K3 only for the reconstruction grids (the
    replayed draws take the plain reparameterization), K3-bwd never; each
    step's relative errors and the phase's seconds;
-18. prints one ``{"fused_norm": [...]}`` line (item 4's rows, one a
+18. trains the stage-2 MoE prior of ``configs/vq16_fold8_moonlight_prior.yaml``
+   (Moonlight-16B-A3B's block at its published widths, 5 layers, routed
+   experts 0-7 of each MoE layer): stage 1 of the config for one epoch,
+   then ``cli.train_prior --config`` over its checkpoint for one epoch
+   (with 3 augment passes, so that the epoch holds several steps of 256):
+   NLL and held-out NLL finite, the checkpoint's arch, depth and share
+   reloaded by ``load_prior`` (~487 M parameters); one ``generate
+   --prior`` sample; the prior trainer's peak memory and grids/s;
+19. prints one ``{"fused_norm": [...]}`` line (item 4's rows, one a
    BatchNorm layer), one ``{"vq_search": [...]}`` line (item 4's VQ rows,
    one an N) and one ``{"kernels": [...]}`` line: K1–K3, then the fused
    BatchNorm's forward (``BN``) and backward (``BN-bwd``) and the VQ search
@@ -227,7 +235,8 @@ From the repository root. It
    ``rrd:`` epoch and the ``--pretrained`` Orbax epoch of item 14,
    ``public_api_launches`` for the registered architecture's epoch of
    item 15, ``config_launches`` for the two epochs of item 16,
-   ``trajectory_launches`` for the two runs of item 17), the card line
+   ``trajectory_launches`` for the two runs of item 17; item 18 trains no
+   fused-ELBO model and is not counted), the card line
    again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; so does a machine
@@ -278,6 +287,8 @@ VQ_EPOCHS = 2  # of the config's 60
 PRIOR_EPOCHS = 2  # of the prior section's 40, then a resume to one more
 AUGMENT_PASSES = 2  # of the prior section's 10
 SAMPLE_N = 16  # grids per sampler call and per /sample request
+MOE_CONFIG = "configs/vq16_fold8_moonlight_prior.yaml"
+MOE_AUGMENT = 3  # augment passes: the corpus's train split four times over, several steps of 256 an epoch
 PRIOR_REQUESTS = 10  # timed /sample and /continue requests each
 
 # H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
@@ -1403,6 +1414,42 @@ def vq_train(root: Path, models: Path, card: str):
         f"codebook perplexity {final['codebook-perplexity']:.2f}, active codes {final['active-codes']} of "
         f"{r['state'].model.codebook_size}; {latest.name} and {best.name} written")
     return r, best
+
+
+def moe_prior_phase(dev, root: Path, card: str) -> None:
+    """Item 18: the Moonlight prior through the prior trainer's normal
+    path, over a stage-1 checkpoint of the same config, then one sample."""
+    from midi_vae_tpu_torch.cli import generate, train as train_cli, train_prior
+
+    models = root / "build" / "moe_models"
+    shutil.rmtree(models, ignore_errors=True)
+    r = train_cli.cli(["--config", str(root / MOE_CONFIG), "--stop-after-epochs", "1", "--seed", "0",
+                       "--models-dir", str(models), "--run-name", "moe", "--run-id", "stage1"])
+    log_cli_run(f"{MOE_CONFIG} stage 1, epoch 1", r, card)
+    best = models / "midi-synthetic" / "moe__stage1" / "best_model.pt"
+    check(best.is_file(), f"stage-1 checkpoint missing: {best}")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p = train_prior.cli(["--config", str(root / MOE_CONFIG), "--checkpoint", str(best), "--epochs", "1",
+                         "--augment-passes", str(MOE_AUGMENT), "--out", str(best.parent / "prior_moonlight.pt")])
+    peak = torch.cuda.max_memory_allocated(dev)
+    h = p["history"][0]
+    check(math.isfinite(h["nll"]) and math.isfinite(p["test_nll"]), f"MoE prior not finite: {p['history']}")
+    prior, pcfg = train_prior.load_prior(p["out"], device=dev)
+    check((pcfg["arch"], pcfg["layers"], pcfg["experts_held"]) == ("moonlight", 5, "0:8")
+          and type(prior).__name__ == "MoonlightPrior" and prior.held == (0, 8), f"MoE prior reloaded as {pcfg}")
+    n_params = sum(q.numel() for q in prior.parameters())
+    del prior
+    log(f"  moonlight prior: {n_params:,} parameters, corpus {p['corpus']} grids, {h['steps']} steps of "
+        f"{p['batch_size']} in {h['duration']:.3f} s ({h['steps'] * p['batch_size'] / h['duration']:.1f} grids/s, "
+        f"the first steps included), nll {h['nll']:.4f}, held-out {p['test_nll']:.4f} nats/position; peak memory "
+        f"{peak:,} B ({100.0 * peak / torch.cuda.get_device_properties(dev).total_memory:.1f} % of the card) [{card}]")
+    t0 = time.perf_counter()
+    sampled = generate.cli(["--checkpoint", str(best), "--prior", p["out"], "--mode", "sample", "-n", "1",
+                            "--out", str(best.parent / "moe_sample.png")])
+    check(sampled.shape[0] == 1 and np.isfinite(sampled).all(), f"MoE prior sample: {sampled.shape}")
+    log(f"  generate --prior: one grid of {pcfg['grid']}x{pcfg['grid']} codes sampled and decoded in "
+        f"{time.perf_counter() - t0:.3f} s [{card}]")
 
 
 def vq_step_timing(r: dict, dev, card: str) -> None:
@@ -3864,6 +3911,8 @@ def main() -> int:
     config_counts, config_errs = config_phase(dev, root, card)
     log("trajectory (the JAX package's flagship run replayed step by step, float32 and bfloat16):")
     trajectory_counts = trajectory_phase(dev, root, card)
+    log(f"stage-2 MoE prior ({MOE_CONFIG}: Moonlight-16B-A3B's block, published widths):")
+    moe_prior_phase(dev, root, card)
 
     runs = {"launches": counts, "cli_launches": cli_counts, "vq_launches": vq_counts, "accum_launches": accum_counts,
             "variant_launches": variant_counts, "model_variant_launches": model_counts,

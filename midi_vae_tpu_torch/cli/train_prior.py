@@ -3,7 +3,12 @@
 
 The second stage of the VQ-VAE pipeline: with the VQ-VAE frozen, encode
 the train partition to ``[s, s]`` code grids and fit a PixelCNN or a
-transformer (``models/prior.py``) by maximum likelihood with Adam. The
+transformer (``models/prior.py``), or Moonlight-16B-A3B's block of latent
+attention and sparse experts (``models/moe_prior.py``; ``--prior-arch
+moonlight``, ``--experts-held``; the step adds its balance loss and
+updates its routing bias), by maximum likelihood with Adam. The step and
+the epoch loop are :func:`make_prior_step` and :func:`train_prior_epoch`,
+which the benchmark's driver calls as well. The
 result, ``prior_latest.pt`` next to the VQ checkpoint, plugs into
 ``cli.generate --prior`` and ``serving.server --prior``.
 
@@ -47,7 +52,7 @@ PRIOR_LATEST = "prior_latest.pt"
 
 # architecture fields that come from the checkpoint on resume (a changed
 # width would make the saved weights unloadable); differing flags warn
-RESUME_ARCH_KEYS = ("arch", "features", "layers", "kernel_size", "heads")
+RESUME_ARCH_KEYS = ("arch", "features", "layers", "kernel_size", "heads", "experts_held")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -65,12 +70,18 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=256,
                    help="Global batch (rounded down to a multiple of --num-devices)")
     p.add_argument("--lr", type=float, default=3e-4)
-    p.add_argument("--prior-arch", choices=("pixelcnn", "transformer"), default="pixelcnn",
-                   help="Prior architecture: masked-conv PixelCNN or a decoder-only transformer")
+    p.add_argument("--prior-arch", choices=("pixelcnn", "transformer", "moonlight"), default="pixelcnn",
+                   help="Prior architecture: masked-conv PixelCNN, a decoder-only transformer, or "
+                        "Moonlight-16B-A3B's block (latent attention and sparse experts at its published widths; "
+                        "--features, --heads and --kernel-size do not apply)")
     p.add_argument("--features", type=int, default=128, help="Prior width (conv features / transformer d_model)")
-    p.add_argument("--layers", type=int, default=6, help="Masked-conv layers / transformer blocks")
+    p.add_argument("--layers", type=int, default=6, help="Masked-conv layers / transformer blocks / moonlight depth kept")
     p.add_argument("--kernel-size", type=int, default=5, help="PixelCNN only")
     p.add_argument("--heads", type=int, default=4, help="Transformer attention heads")
+    p.add_argument("--experts-held", default=None, metavar="LO:HI",
+                   help="Moonlight only: the routed experts this device holds of each MoE layer, as one device's "
+                        "share under expert parallelism. Tokens route over all experts; the others' part is "
+                        "left out. Default: all 64")
     p.add_argument("--conditional", action="store_true",
                    help="Fit a class-conditional prior p(codes | y) from the dataset's labels")
     p.add_argument("--augment-passes", type=int, default=0, metavar="N",
@@ -128,12 +139,23 @@ def apply_prior_config(args, parser: argparse.ArgumentParser, argv=None):
 
 
 def build_prior(arch: str, *, num_codes: int, grid: int, features: int, layers: int, kernel_size: int = 5,
-                heads: int = 4, num_classes: int = 0, dtype=torch.float32, seed: int = 0):
+                heads: int = 4, num_classes: int = 0, dtype=torch.float32, seed: int = 0,
+                experts_held: Optional[str] = None, widths=None):
     """A code prior by architecture name, initialised from ``seed`` on the
-    CPU; one constructor for the trainer and :func:`load_prior`."""
+    CPU; one constructor for the trainer and :func:`load_prior`. For
+    ``moonlight``: ``layers`` deep, the routed experts ``experts_held``
+    ("lo:hi", default all) of each MoE layer, at the published widths
+    unless ``widths`` (a ``MoonlightWidths``) says otherwise."""
     from midi_vae_tpu_torch.models.prior import CodePrior, TransformerCodePrior
 
     gen = torch.Generator().manual_seed(int(seed))
+    if arch == "moonlight":
+        from midi_vae_tpu_torch.models.moe_prior import MOONLIGHT, MoonlightPrior, parse_held
+
+        w = widths or MOONLIGHT
+        held = parse_held(experts_held or f"0:{w.n_routed_experts}", w.n_routed_experts)
+        return MoonlightPrior(num_codes=num_codes, num_layers=layers, num_classes=num_classes, dtype=dtype, grid=grid,
+                              held=held, widths=w, generator=gen)
     if arch == "pixelcnn":
         return CodePrior(num_codes=num_codes, features=features, num_layers=layers, kernel_size=kernel_size,
                          num_classes=num_classes, dtype=dtype, generator=gen)
@@ -158,6 +180,7 @@ def load_prior(path: str, device="cuda"):
         str(pcfg.get("arch") or "pixelcnn"), num_codes=int(pcfg["num_codes"]), grid=int(pcfg["grid"]),
         features=int(pcfg["features"]), layers=int(pcfg["layers"]), kernel_size=int(pcfg.get("kernel_size") or 5),
         heads=int(pcfg.get("heads") or 4), num_classes=int(pcfg.get("num_classes") or 0),
+        experts_held=pcfg.get("experts_held"),
     )
     prior.load_state_dict(payload["state"]["params"])
     return prior.to(resolve_device(device)), pcfg
@@ -195,6 +218,79 @@ def validate_labels(grids: np.ndarray, labels: Optional[np.ndarray], num_classes
     return grids, labels
 
 
+def make_prior_step(prior, optimizer, grids_dev: torch.Tensor, labels_dev: Optional[torch.Tensor] = None, *,
+                    rows_dev: Optional[torch.Tensor] = None, mesh=None):
+    """One training step over the device corpus: ``step(sel)`` takes the
+    corpus rows ``sel`` of a global batch (this rank's ``rows_dev`` of
+    them under a mesh), steps Adam, and returns a device vector: [NLL],
+    or for a ``MoonlightPrior`` [NLL, held assignments, the sum over its
+    MoE layers of the largest held expert's]. A ``MoonlightPrior``'s loss
+    is NLL + α·L_bal (its balance loss), its reported loss the NLL alone,
+    and after Adam's step it updates its routing bias from the step's
+    loads (mean-reduced over the ranks first)."""
+    from midi_vae_tpu_torch.io import tracing
+    from midi_vae_tpu_torch.models.moe_prior import BALANCE_ALPHA, MoonlightPrior
+    from midi_vae_tpu_torch.models.prior import picked_log_probs, prior_nll
+    from midi_vae_tpu_torch.parallel.collectives import psum_mean_
+
+    moe = isinstance(prior, MoonlightPrior)
+
+    def train_step(sel):
+        with tracing.span("prior.step"):
+            if rows_dev is not None:
+                sel = sel[rows_dev]  # this rank's rows of the global batch
+            idx = grids_dev[sel]
+            y = labels_dev[sel] if labels_dev is not None else None
+            optimizer.zero_grad(set_to_none=True)
+            if moe:
+                logits, aux, loads, held = prior.forward_train(idx, y)
+                nll = -torch.mean(picked_log_probs(logits, idx))
+                (nll + BALANCE_ALPHA * aux).backward()
+            else:
+                nll = prior_nll(prior, idx, y)
+                nll.backward()
+            nll = nll.detach().float().reshape(1)
+            if mesh is not None:
+                psum_mean_([p.grad for p in prior.parameters() if p.grad is not None] + [nll] + ([loads] if moe else []),
+                           mesh.data_group)
+            optimizer.step()
+            tracing.count("prior.steps", 1)
+            if not moe:
+                return nll
+            prior.update_routing_bias(loads)
+            return torch.cat([nll, held.float()])
+
+    return train_step
+
+
+def train_prior_epoch(train_step, *, n: int, bs: int, seed: int, epoch: int, device, scan_steps: int = 16,
+                      max_steps: Optional[int] = None) -> np.ndarray:
+    """One epoch of ``train_step`` (:func:`make_prior_step`) over an
+    ``n``-grid corpus in batches of ``bs``, in the epoch-keyed order of
+    ``host_rng(seed, epoch)`` (a resumed run walks the permutations of an
+    uninterrupted one); the host reads the steps' outputs once every
+    ``scan_steps`` steps and folds a MoE prior's held counts into the
+    counters ``moe.held_assignments`` and ``moe.held_max``. Returns the
+    steps' NLLs; ``max_steps`` stops the epoch early."""
+    from midi_vae_tpu_torch.core.rng import host_rng
+    from midi_vae_tpu_torch.io import tracing
+
+    steps = max(n // bs, 1)
+    order = host_rng(seed, epoch).permutation(n)[: steps * bs].reshape(steps, bs)
+    steps = steps if max_steps is None else min(steps, max_steps)
+    order_dev = torch.from_numpy(order[:steps]).to(device)
+    chunk = max(int(scan_steps), 1)
+    nlls = []
+    for c0 in range(0, steps, chunk):
+        out = torch.stack([train_step(order_dev[k]) for k in range(c0, min(c0 + chunk, steps))])
+        out = out.float().cpu().numpy()  # the host's one read per chunk
+        if out.shape[1] > 1:
+            tracing.count("moe.held_assignments", int(round(float(out[:, 1].sum()))))
+            tracing.count("moe.held_max", int(round(float(out[:, 2].sum()))))
+        nlls.append(out[:, 0])
+    return np.concatenate(nlls)
+
+
 def encode_corpus(model, loader, with_labels: bool = False, epoch: int = 1):
     """The frozen VQ encoder over ``loader.epoch(epoch)`` → [N, s, s] int32
     grids on the host (padding rows dropped); ``with_labels=True`` returns
@@ -223,6 +319,13 @@ def cli(argv=None) -> dict:
     args = parser.parse_args(argv)
     if args.config:
         args = apply_prior_config(args, parser, argv)
+    if args.experts_held is not None:
+        from midi_vae_tpu_torch.models.moe_prior import MOONLIGHT, parse_held
+
+        try:
+            parse_held(args.experts_held, MOONLIGHT.n_routed_experts)
+        except ValueError as e:
+            raise SystemExit(f"--experts-held: {e}") from None
     if args.prior_arch == "transformer" and args.features % args.heads:
         raise SystemExit(f"--features ({args.features}) must be divisible by --heads ({args.heads}) "
                          "for the transformer prior (qkv_features = features)")
@@ -238,15 +341,13 @@ def cli(argv=None) -> dict:
 
     from midi_vae_tpu_torch.cli.generate import _load_model_and_state
     from midi_vae_tpu_torch.core.device import resolve_device
-    from midi_vae_tpu_torch.core.rng import host_rng
     from midi_vae_tpu_torch.data.fetch import fetch_dataset
     from midi_vae_tpu_torch.data.pipeline import make_loader
     from midi_vae_tpu_torch.data.registry import image_dataset_sizes
     from midi_vae_tpu_torch.data.transforms import VALID_TRANSFORMS, get_transform
     from midi_vae_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
     from midi_vae_tpu_torch.io.logging import MetricLogger, generate_id
-    from midi_vae_tpu_torch.models.prior import prior_nll
-    from midi_vae_tpu_torch.parallel.collectives import barrier, psum_mean_
+    from midi_vae_tpu_torch.parallel.collectives import barrier
     from midi_vae_tpu_torch.parallel.mesh import make_mesh, replicate
 
     dev = resolve_device("cpu" if args.cpu else "cuda")
@@ -275,6 +376,7 @@ def cli(argv=None) -> dict:
         args.prior_arch = str(rcfg.get("arch") or "pixelcnn")
         args.features, args.layers = int(rcfg["features"]), int(rcfg["layers"])
         args.kernel_size, args.heads = int(rcfg.get("kernel_size") or 5), int(rcfg.get("heads") or 4)
+        args.experts_held = rcfg.get("experts_held")
         if int(rcfg.get("num_classes") or 0) > 0:
             args.conditional = True
         print(f"Resuming prior training from {out} "
@@ -345,7 +447,7 @@ def cli(argv=None) -> dict:
     prior = build_prior(
         args.prior_arch, num_codes=num_codes, grid=grid, features=args.features, layers=args.layers,
         kernel_size=args.kernel_size, heads=args.heads, num_classes=num_classes,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32, seed=args.seed,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32, seed=args.seed, experts_held=args.experts_held,
     ).to(dev)
     optimizer = torch.optim.Adam(prior.parameters(), lr=args.lr)
     start_epoch, total_step = 0, 0
@@ -382,6 +484,7 @@ def cli(argv=None) -> dict:
         return {
             "kind": "vq-code-prior", "arch": args.prior_arch, "num_codes": num_codes, "grid": grid,
             "features": args.features, "layers": args.layers, "kernel_size": args.kernel_size, "heads": args.heads,
+            "experts_held": getattr(prior, "held", None) and f"{prior.held[0]}:{prior.held[1]}",
             "num_classes": num_classes, "augment_passes": int(args.augment_passes), "bf16": bool(args.bf16),
             "seed": args.seed, "lr": args.lr, "batch_size": bs, "epochs": args.epochs, "dataset": dataset,
             "vq_checkpoint": os.path.abspath(args.checkpoint), "final_nll": final_nll, "test_nll": test_nll,
@@ -392,42 +495,23 @@ def cli(argv=None) -> dict:
                         config=prior_config(float(nll), test_nll), epoch=epoch, total_step=total_step)
         barrier()  # rank 0 wrote (save_checkpoint writes on rank 0 only)
 
-    def train_step(sel):
-        if rows_dev is not None:
-            sel = sel[rows_dev]  # this rank's rows of the global batch
-        idx = grids_dev[sel]
-        optimizer.zero_grad(set_to_none=True)
-        nll = prior_nll(prior, idx, labels_dev[sel] if num_classes else None)
-        nll.backward()
-        nll = nll.detach().float().reshape(1)
-        if mesh is not None:
-            psum_mean_([p.grad for p in prior.parameters() if p.grad is not None] + [nll], mesh.data_group)
-        optimizer.step()
-        return nll[0]
-
+    train_step = make_prior_step(prior, optimizer, grids_dev, labels_dev, rows_dev=rows_dev, mesh=mesh)
     steps = max(n // bs, 1)
     nll = float(resume["config"].get("final_nll", float("nan"))) if resume else float("nan")
     if start_epoch >= args.epochs:
         print(f"checkpoint already at epoch {start_epoch} >= --epochs {args.epochs}; "
               "skipping training (held-out eval still runs)")
     history = []
-    chunk = max(int(args.scan_steps), 1)
     for epoch in range(start_epoch + 1, args.epochs + 1):
-        # epoch-keyed host RNG: a resumed run walks the permutations of an uninterrupted one
-        order = host_rng(args.seed, epoch).permutation(n)[: steps * bs].reshape(steps, bs)
-        order_dev = torch.from_numpy(order).to(dev)
         t0 = time.perf_counter()
-        epoch_nlls = []
-        for c0 in range(0, steps, chunk):
-            nlls = torch.stack([train_step(order_dev[k]) for k in range(c0, min(c0 + chunk, steps))])
-            nlls = nlls.float().cpu().numpy()  # the host's one read per chunk
-            epoch_nlls.append(nlls)
-            for v in nlls:
-                total_step += 1
-                if total_step % args.log_interval == 0:
-                    logger.log({"training/stepwise/nll": float(v), "training/stepwise/epoch": epoch}, total_step)
+        epoch_nlls = train_prior_epoch(train_step, n=n, bs=bs, seed=args.seed, epoch=epoch, device=dev,
+                                       scan_steps=args.scan_steps)
+        for v in epoch_nlls:
+            total_step += 1
+            if total_step % args.log_interval == 0:
+                logger.log({"training/stepwise/nll": float(v), "training/stepwise/epoch": epoch}, total_step)
         duration = time.perf_counter() - t0
-        nll = float(np.concatenate(epoch_nlls).mean())
+        nll = float(epoch_nlls.mean())
         throughput = steps * bs / max(duration, 1e-9)
         history.append({"epoch": epoch, "nll": nll, "duration": duration, "steps": steps})
         print(f"epoch {epoch}/{args.epochs}: nll {nll:.4f} nats/position ({throughput:,.0f} grids/sec)")

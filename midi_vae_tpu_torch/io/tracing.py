@@ -42,7 +42,23 @@ Spans and counters of the port (PERF.md §3 says which metric reads each):
   and its number of vectors (a host integer from the shape);
 - counter ``vq.fused_calls``: the same call adds one when it took the
   search and sum kernels (counted in ``ops/vq_search.py``
-  ``nearest_codes``, where they are taken; on a card only).
+  ``nearest_codes``, where they are taken; on a card only);
+- ``prior.step``: ``cli/train_prior.py`` ``make_prior_step``'s step, the
+  whole body; counter ``prior.steps``: one a step;
+- ``prior.attention``: ``models/moe_prior.py`` ``MLA.forward``, each
+  latent attention's forward;
+- ``prior.moe.route`` and ``prior.moe.experts``: ``models/moe_prior.py``
+  ``MoE.forward``, side by side: the router, its top-k, weights, loads
+  and balance term; then the dispatch, the held experts, the combine and
+  the shared expert (the forward only: the held experts' recompute in the
+  backward lies outside);
+- counters ``moe.calls`` and ``moe.assignments``: each MoE layer's
+  forward adds one and its tokens × experts a token (host integers from
+  the shapes);
+- counters ``moe.held_assignments`` and ``moe.held_max``: the
+  assignments to the experts a layer holds, and the largest held
+  expert's, summed over the layers and steps; ``train_prior_epoch``
+  folds them in from the steps' outputs at its one host read a chunk.
 
 Counters always count.
 """

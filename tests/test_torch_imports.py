@@ -46,7 +46,7 @@ _INFERENCE_MODULES = (
 
 
 # the two-stage VQ path (the VQ-VAE, its objective, the code priors and their trainer)
-_TWO_STAGE_MODULES = ("cli/train_prior.py", "losses/vq.py", "models/prior.py", "models/vq.py")
+_TWO_STAGE_MODULES = ("cli/train_prior.py", "losses/vq.py", "models/moe_prior.py", "models/prior.py", "models/vq.py")
 
 
 # the training variants (the β-TC objective, MLPVAE, the optax-rule optimizers and schedules)

@@ -64,7 +64,16 @@ def _surface(parser):
 
 
 def test_prior_parser_matches_jax():
-    assert _surface(train_prior.get_parser()) == _surface(jax_prior_parser())
+    """The JAX parser's surface, and the port's one addition, the moonlight
+    prior: its choice of ``--prior-arch`` and ``--experts-held``."""
+    port = _surface(train_prior.get_parser())
+    added = [a for a in port if a[1] == "experts_held"]
+    assert added == [(("--experts-held",), "experts_held", "None", "None", None)]
+    arch = next(a for a in port if a[1] == "prior_arch")
+    assert arch[3] == repr(("pixelcnn", "transformer", "moonlight"))
+    port = [a[:3] + (repr(("pixelcnn", "transformer")),) + a[4:] if a[1] == "prior_arch" else a
+            for a in port if a[1] != "experts_held"]
+    assert port == _surface(jax_prior_parser())
 
 
 # ---------------------------------------------------------------- stage 1
